@@ -1,7 +1,7 @@
 # coding=utf-8
 """Inverse material estimation: recover Young's modulus from a trajectory.
 
-A TPU-native capability with no reference counterpart: the reference's only
+A capability with no reference counterpart: the reference's only
 autodiff is Taichi's per-substep force tape (main.py:107) — it cannot
 differentiate THROUGH time.  Here the whole rollout is one pure JAX function
 (fem_tpu/diff.py), so ``jax.grad`` flows from a trajectory-mismatch loss back

@@ -13,7 +13,7 @@ This example drops a stiff fine-mesh 2D block at a dt with κ ≈ 60:
 the reference integrator NaNs within a few frames; the Newton integrator
 runs the same scenario to rest.  (At scale the same contrast holds on real
 geometry: the reference's own spot.obj soaks 10+ virtual seconds under
-Newton at the dt that NaNs semi-implicitly — BASELINE.md round-4 rows.)
+Newton at the dt that NaNs semi-implicitly.)
 
 Run: python examples/newton_large_dt.py
 """

@@ -9,10 +9,9 @@ the yield surface FLOWS into the per-element internal variable
 ``SimState.plastic_inv`` — release the load and the body keeps a
 volume-preserving permanent set (squat AND widened).
 
-Since round 5 the inelastic stress runs as *material layers* on every
-fast path — this demo uses the implicit CG path, which rides the blocked
-MXU operator with the dynamic effective rest-edge inverse
-``ref_inv·F_p⁻¹`` gathered per locality block.
+The inelastic stress runs as *material layers* on every path — this demo
+uses the implicit CG path, whose operator composes the dynamic effective
+rest-edge inverse ``ref_inv·F_p⁻¹`` per element.
 
 Two runs, same kinematic squash to 60% height:
   * elastic  (plastic_yield = 0):  recovers to ~100% of rest height

@@ -5,7 +5,7 @@ The reference's bodies never interact — its main loop steps each object
 independently (reference main.py:59-61), so stacked bodies interpenetrate.
 With ``contact: "penalty"`` all bodies advance jointly, coupled by
 particle-particle penalty forces every substep (fem_tpu/contact.py —
-Newton's-third-law exact, momentum conserving; one MXU matmul per body
+Newton's-third-law exact, momentum conserving; one matrix product per body
 pair).
 
 Run:  python examples/two_body_contact.py

@@ -1,7 +1,7 @@
 # coding=utf-8
-"""fem_tpu — a TPU-native hyperelastic finite-element framework.
+"""fem_tpu — a hyperelastic finite-element framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the Taichi-based
+Built from scratch in JAX/XLA with the capabilities of the Taichi-based
 Jukgei/Finite-Element-Method reference (see SURVEY.md): 2D triangle / 3D
 tetrahedral Neo-Hookean soft bodies, explicit integration (analytic forces or
 ``jax.grad`` of the elastic energy) and implicit integration solved matrix-free

@@ -36,7 +36,7 @@ class Simulation:
                  sharded: bool = False):
         """``sharded=True`` compiles each body's frame function under
         ``shard_map`` over a 1-D device mesh spanning all of
-        ``jax.devices()`` (elements/locality-blocks partitioned, one psum
+        ``jax.devices()`` (elements partitioned, one psum
         per operator apply — parallel/sharding.py).  Identical results to
         single-device (tests/test_sharding.py); requires >1 device to be
         useful (8 virtual CPU devices via
@@ -146,10 +146,10 @@ class Simulation:
         ``method``: "chebyshev" (default — filtered subspace iteration, no
         inner solves, scales to 68k+ tets and matches the f64 oracle to
         ~1e-6 relative), "shift_invert" (inner-CG LOBPCG; fine on small
-        meshes, collapses at scale — BASELINE.md), or "sparse_f64" (the
-        DIRECT offline oracle: exact f64 element Hessians + host sparse
-        ARPACK shift-invert — residuals ~1e-12 at 68k in ~30 s, validates
-        the TPU route's ω² to ≤3e-5; solvers/modal.modal_analysis_sparse_f64).
+        meshes, collapses at scale), or "sparse_f64" (the DIRECT offline
+        oracle: exact f64 element Hessians + host sparse ARPACK
+        shift-invert — residuals ~1e-12 at 68k, validates the f32 device
+        route's ω² to ≤3e-5; solvers/modal.modal_analysis_sparse_f64).
 
         ``refine_f64=True`` chases the f32 solve with a float64 Chebyshev
         pass on the host CPU (solvers/modal.modal_refine_f64) — scrubs the

@@ -1,12 +1,12 @@
 # coding=utf-8
 """Batched simulation: many independent simulations per device dispatch.
 
-New TPU-native capability with no reference counterpart: `vmap` the substep
+New capability with no reference counterpart: `vmap` the substep
 over a leading batch axis of states — ensembles of initial conditions,
 parameter sweeps over obstacle layouts, or Monte-Carlo perturbations — all
-sharing one mesh, compiled once, saturating the chip that a single small mesh
-leaves idle.  This is how a 642-particle body becomes a large, MXU/VPU-shaped
-workload on hardware built for batch parallelism.
+sharing one mesh, compiled once, filling the device that a single small mesh
+leaves idle.  This is how a 642-particle body becomes a large workload on
+hardware built for batch parallelism.
 """
 
 from __future__ import annotations

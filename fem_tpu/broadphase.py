@@ -2,12 +2,13 @@
 """Uniform-grid broad phase for penalty contact at scale.
 
 The dense pair machinery in fem_tpu/contact.py materializes (ns_a, ns_b)
-coefficient matrices — one MXU matmul per body pair, unbeatable for the
-multi-body demo scales but O(ns²) in HBM: ~270 MB of transients at an
+coefficient matrices — one matrix product per body pair, unbeatable for
+the multi-body demo scales but O(ns²) in device memory: ~270 MB of
+transients at an
 8k-vertex surface and out of reach at the 212k-tet scale (~20k surface
 vertices → 1.6 GB per matrix).  This module is the scaling path: a
 uniform grid with cell size = contact radius, rebuilt every substep from
-scratch (positions move), in static shapes throughout — the TPU-native
+scratch (positions move), in static shapes throughout — the static-shape
 substitute for pointer-chasing neighbor lists:
 
 1. quantize positions to grid cells, encode to one int32 cell id;
@@ -19,11 +20,9 @@ substitute for pointer-chasing neighbor lists:
    order and (b) ``cap`` slots at the ``searchsorted`` start of each of
    the (3^d−1)/2 lexicographically-forward neighbor cells.  Every pair
    is found at most ONCE; candidate volume is (ns, (3^d+1)/2·cap) —
-   half the naive both-sides stencil.  Measured TIME-NEUTRAL on TPU
-   (sort + searchsorted + gather latency dominate, not candidate
-   volume — BASELINE.md); the win is halved candidate memory plus
-   cleaner semantics: truncation drops a pair entirely instead of
-   halving its force;
+   half the naive both-sides stencil.  The win is halved candidate
+   memory plus cleaner semantics: truncation drops a pair entirely
+   instead of halving its force;
 4. elementwise penalty (same formulas as contact._pair_coefs: coefficient
    k·max(0, r−d)/max(d, 0.1r), viscous dashpot on the overlap ramp) over
    the candidate set, each found pair scattered to BOTH endpoints
@@ -43,12 +42,11 @@ by the auto-radius rule), so cap 8 is generous for simple contact and
 cap can be raised for crushed configurations; truncated pairs drop
 (softening the penalty) but never break momentum.
 
-WHEN TO USE (measured on TPU, tools/probe_broadphase.py → BASELINE.md):
-the dense path's O(ns²) pair matrices ride the MXU/HBM stream and beat
-this gather-bound path ~10-25× at every size that FITS (65k vertices:
-dense 30 ms vs grid 718 ms; dense still runs 98k = a 9 GiB pair matrix
-in 75 ms); dense fails to compile at 131k (16 GiB > HBM).  The grid
-is the path for (a) scenes past the dense memory wall (~1 GiB per pair
+WHEN TO USE: the dense path's O(ns²) pair matrices are plain matrix
+products and win while they fit in device memory (a 98k-vertex pair
+matrix is 9 GiB); which path is faster below that on a GPU has not been
+measured (tools/probe_broadphase.py compares them).  The grid is the
+path for (a) scenes past the dense memory wall (~1 GiB per pair
 tensor with ``contact_mu``, which needs explicit (ns_a, ns_b, d) pair
 tensors on the dense side) and (b) many-body scenes (dense unrolls
 O(B²) pair matmuls at trace time).  ``contact_broadphase="auto"``
@@ -130,14 +128,10 @@ def grid_contact_forces(
 
     order = jnp.argsort(cell)
     cell_s = cell[order]
-    # PACKED candidate rows (round-5 transport fix): the candidate gathers
-    # below move (ns·q) rows at the documented ~1.7 GB/s row-transport
-    # floor with a fixed per-row cost, so gathering pos/vel/rest/body as
-    # FOUR separate (ns, q, d)-row streams paid that overhead 4×.  Pack
-    # every per-vertex field into ONE (ns, K) row matrix in sorted order
-    # and gather it once; columns slice out in registers.  body ids ride
-    # as f32 (exact for < 2^24 vertices).  Measured on TPU at 65k
-    # vertices: see BASELINE.md broad-phase table.
+    # PACKED candidate rows: every per-vertex field goes into ONE (ns, K)
+    # row matrix in sorted order and is gathered once, instead of four
+    # separate (ns, q, d)-row gathers; columns slice out in registers.
+    # body ids ride as f32 (exact for < 2^24 vertices).
     parts = [pos[order]]
     col_vel = None
     if vel is not None:

@@ -17,15 +17,15 @@ kinematic update directly; the implicit solve folds them into its rhs via
 conserves linear momentum up to float reassociation (pinned by
 tests/test_contact.py).
 
-TPU mapping: the pair distances are ONE MXU matmul per body pair
+Execution: the pair distances are ONE matrix product per body pair
 (‖a‖² + ‖b‖² − 2·a·bᵀ over (N_a, N_b)) plus two small matmuls for the force
 accumulation — dense, static-shaped, no neighbor lists.  For the framework's
 2D/3D multi-body demo scales (10²-10⁴ particles per body) this is far below
 one element-prep in cost; very large body pairs would want a culling
 extension.
 
-Extensions layered on the same pair machinery (all static-shaped MXU
-matmuls, all antisymmetric ⇒ momentum-conserving):
+Extensions layered on the same pair machinery (all static-shaped matrix
+products, all antisymmetric ⇒ momentum-conserving):
 
 - **Surface-vertex contact** (``contact_surface_only``, default on):
   pairs range over each body's surface-vertex set (the faces' vertices) —
@@ -53,11 +53,11 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from fem_tpu.models.state import FemObject, Obstacles, SimState
 from fem_tpu.sim import StepAux, _cfg_kwargs, substep
 from fem_tpu.utils.config import SimConfig
+from fem_tpu.utils.pytree import dataclass, static_field
 
 _HP = jax.lax.Precision.HIGHEST
 
@@ -115,8 +115,7 @@ def _pair_mu_forces(
     coordinate differences (no ‖a‖²+‖b‖²−2ab cancellation), penalty
     coefficient k·pen/max(dist, 0.1r), optional isotropic dashpot, and
     the regularized Coulomb cone min(mu_slope·|v_t|, μ·k·pen)·v̂_t.
-    d× the matmul path's HBM transients (still ~10× faster than the
-    gather-bound grid while it fits — BASELINE.md broad-phase table).
+    d× the matmul path's device-memory transients.
     ``mask`` (0/1, zero diagonal) enables the same-body variant.
     Returns (f_a, f_b); antisymmetric per pair ⇒ momentum-conserving."""
     diff = pos_a[:, None, :] - pos_b[None, :, :]  # (ns_a, ns_b, d)
@@ -217,11 +216,11 @@ def self_contact_forces(
     return f
 
 
-@struct.dataclass
+@dataclass
 class ContactPlan:
     """Static (per-scene) contact index data, passed as a jit ARGUMENT —
-    never closed over (captured arrays compile as XLA constants, measured
-    far slower on this backend; see CLAUDE.md)."""
+    never closed over (captured arrays compile as XLA constants; see the
+    NOTE in fem_tpu/sim.py)."""
 
     # Per-body (ns_i,) int32 participating-vertex ids (the surface-vertex
     # set when contact_surface_only, else arange(N)).
@@ -234,10 +233,10 @@ class ContactPlan:
     body_id: Optional[jnp.ndarray] = None  # (Σns,) int32
     rest_cat: Optional[jnp.ndarray] = None  # (Σns, d)
     # Static routing fields.
-    mode: str = struct.field(pytree_node=False, default="dense")
-    sizes: Tuple[int, ...] = struct.field(pytree_node=False, default=())
-    self_contact: bool = struct.field(pytree_node=False, default=False)
-    cap: int = struct.field(pytree_node=False, default=8)
+    mode: str = static_field("dense")
+    sizes: Tuple[int, ...] = static_field(())
+    self_contact: bool = static_field(False)
+    cap: int = static_field(8)
 
 
 def build_contact_plan(
@@ -247,15 +246,12 @@ def build_contact_plan(
     plus either the dense rest-distance self-pair masks or the grid
     broad-phase soup.
 
-    ``contact_broadphase="auto"`` encodes the MEASURED TPU crossover
-    (tools/probe_broadphase.py → BASELINE.md): the dense O(ns²) pair
-    matrices ride the MXU/HBM stream and beat the gather-bound grid
-    ~10-25× at every size that fits (65k vertices: dense 30 ms vs grid
-    718 ms; dense still runs 98k = 9 GiB pair matrix in 75 ms), and
-    dense only dies at the HBM wall (131k fails to compile, 16 GiB).  So
-    auto picks the grid exactly when dense is structurally out:
+    ``contact_broadphase="auto"`` picks the grid exactly when dense is
+    structurally out (where the two cross over on a GPU below that has
+    not been measured — tools/probe_broadphase.py compares them):
     (a) more than 8 bodies (dense unrolls O(B²) pair matmuls at trace
-    time), or (b) the pair transients would blow HBM — the largest
+    time), or (b) the pair transients would blow device memory — the
+    largest
     single pair matrix over ~8 GiB, or with ``contact_mu`` > 0 (which
     needs EXPLICIT (ns_a, ns_b, d) pair tensors, d× the matmul path's
     transients and several live at once) over ~1 GiB per tensor."""

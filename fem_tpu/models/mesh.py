@@ -2,7 +2,7 @@
 """Mesh ingestion: 2D procedural grids and the 3D tetrahedral pipeline.
 
 Host-side CPU preprocessing (numpy/scipy) that produces the static arrays
-shipped to the TPU — mirroring the reference's load path (object.py:95-161)
+shipped to the device — mirroring the reference's load path (object.py:95-161)
 which also runs on host CPU before any kernels.
 
 The reference's 3D path depends on the tetgen/trimesh/pyvista C++ wheels

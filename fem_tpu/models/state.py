@@ -2,11 +2,11 @@
 """State containers: pytrees of arrays + static scalars.
 
 The reference holds all state in Taichi struct fields on one ``Object``
-(object.py:12-93) mutated in place by kernels.  TPU-native design: simulation
+(object.py:12-93) mutated in place by kernels.  Here simulation
 state is an immutable pytree (:class:`SimState`) threaded through pure jitted
 step functions; the static mesh/material data lives in :class:`FemObject`.
 Scalars that must be trace-time constants (dim, counts, material params) are
-``pytree_node=False`` fields.
+static fields (fem_tpu/utils/pytree.py).
 """
 
 from __future__ import annotations
@@ -15,12 +15,12 @@ from typing import Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from fem_tpu.utils.config import BlockConfig, ObjectConfig
+from fem_tpu.utils.pytree import dataclass, static_field
 
 
-@struct.dataclass
+@dataclass
 class SimState:
     """Per-particle dynamic state (reference: ``Particle`` struct members that
     are actually live — object.py:12-23 minus the dead vel_next/implicit_A/b;
@@ -44,7 +44,7 @@ class SimState:
     viscous_inv: jnp.ndarray = None
 
 
-@struct.dataclass
+@dataclass
 class FemObject:
     """Static per-object data: mesh topology, reference config, material."""
 
@@ -56,21 +56,17 @@ class FemObject:
     rest_pos: jnp.ndarray  # (N, d)   ref_pos (object.py:342)
     faces: jnp.ndarray  # (M, 3) int32 render/surface faces
     # Per-particle incidence plan (N, cap) for gather-based assembly
-    # (ops/assembly.py:build_gather_plan) — TPUs prefer gathers to scatters.
+    # (ops/assembly.py:build_gather_plan): deterministic sums, no atomics.
     # Two-tier when the valence distribution is skewed (split_two_tier):
     # gather_hi (N2, maxdeg-cap) holds the outlier particles' (gather_out)
     # remaining rows, index-added on top; both None on small/uniform meshes.
     gather_idx: jnp.ndarray = None
     gather_hi: jnp.ndarray = None
     gather_out: jnp.ndarray = None
-    # Dense ±1 edge-difference operator S (E·d, N) for the MXU operator mode
+    # Dense ±1 edge-difference operator S (E·d, N) for the "mxu" operator mode
     # (solvers/implicit.py:build_edge_matrix); attached at build time for
     # small meshes, None otherwise.
     edge_matrix: jnp.ndarray = None
-    # Element-block partition for the blocked MXU operator mode
-    # (ops/blocking.py) — attached at build time for large 3D meshes where
-    # the dense edge matrix would not fit, None otherwise.
-    blocking: "Blocking" = None
     # Block-sparse row plan for the serial Gauss–Seidel-style Jacobi sweep
     # (ops/assembly.py::build_jacobi_plan): per-particle neighbor slots +
     # per-element contribution scatter — lets the parity sweep run O(E)
@@ -99,29 +95,29 @@ class FemObject:
     # --- static metadata ---
     # "gather" (default, single-chip) or "segment" (used under shard_map
     # where each shard owns an element slice and psum-reduces).
-    assembly_mode: str = struct.field(pytree_node=False, default="gather")
-    dim: int = struct.field(pytree_node=False, default=2)
-    particle_cnt: int = struct.field(pytree_node=False, default=0)
-    element_cnt: int = struct.field(pytree_node=False, default=0)
-    mesh_cnt: int = struct.field(pytree_node=False, default=0)
-    mu: float = struct.field(pytree_node=False, default=0.0)
-    s_lambda: float = struct.field(pytree_node=False, default=0.0)
-    damping: float = struct.field(pytree_node=False, default=0.0)
+    assembly_mode: str = static_field("gather")
+    dim: int = static_field(2)
+    particle_cnt: int = static_field(0)
+    element_cnt: int = static_field(0)
+    mesh_cnt: int = static_field(0)
+    mu: float = static_field(0.0)
+    s_lambda: float = static_field(0.0)
+    damping: float = static_field(0.0)
     # Stiffness-proportional Rayleigh damping β (ObjectConfig.damping_beta,
     # extension): damping force β·G(K)·v on the decoupled block Hessian.
-    # 0.0 = reference parity (and the fused whole-frame kernels require it).
-    damping_beta: float = struct.field(pytree_node=False, default=0.0)
+    # 0.0 = reference parity.
+    damping_beta: float = static_field(0.0)
     # Inelastic material extensions (ObjectConfig.plastic_yield /
     # viscous_mu / viscous_tau; fem_tpu/ops/inelastic.py).  0.0 = off.
-    plastic_yield: float = struct.field(pytree_node=False, default=0.0)
-    viscous_mu: float = struct.field(pytree_node=False, default=0.0)
-    viscous_tau: float = struct.field(pytree_node=False, default=0.1)
-    num_aggregates: int = struct.field(pytree_node=False, default=0)
-    rho: float = struct.field(pytree_node=False, default=0.0)
-    material: str = struct.field(pytree_node=False, default="neo_hookean")
+    plastic_yield: float = static_field(0.0)
+    viscous_mu: float = static_field(0.0)
+    viscous_tau: float = static_field(0.1)
+    num_aggregates: int = static_field(0)
+    rho: float = static_field(0.0)
+    material: str = static_field("neo_hookean")
 
 
-@struct.dataclass
+@dataclass
 class Obstacles:
     """Circular obstacle set (reference: circle_blocks.py:6-25).  Zero-radius
     blocks are skipped by the collision predicate (kinematic.py:34-35), so
@@ -148,10 +144,10 @@ class Obstacles:
     sph_r: jnp.ndarray = None  # (S,)
     # Per-obstacle Coulomb coefficients μ (static: config constants — the
     # zero-friction case compiles to the exact reference slide).
-    half_f: Tuple[float, ...] = struct.field(pytree_node=False, default=())
-    box_f: Tuple[float, ...] = struct.field(pytree_node=False, default=())
-    sdf_f: Tuple[float, ...] = struct.field(pytree_node=False, default=())
-    sph_f: Tuple[float, ...] = struct.field(pytree_node=False, default=())
+    half_f: Tuple[float, ...] = static_field(())
+    box_f: Tuple[float, ...] = static_field(())
+    sdf_f: Tuple[float, ...] = static_field(())
+    sph_f: Tuple[float, ...] = static_field(())
 
     @staticmethod
     def from_configs(
@@ -217,9 +213,8 @@ def build_object(
     337-343: ``pos = vertices + center``).
 
     ``operator_mode`` mirrors ``SimConfig.operator_mode``: the dense edge
-    matrix (O(E·d·N) HBM) is built only when ``"mxu"`` is explicitly forced —
-    "auto" always prefers the blocked operator, leaving the matrix dead
-    weight otherwise."""
+    matrix (O(E·d·N) device memory) is built only when ``"mxu"`` is
+    explicitly forced (fem_tpu/strategy.py)."""
     from fem_tpu.ops.assembly import build_gather_plan, split_two_tier
     from fem_tpu.solvers.implicit import build_edge_matrix
 
@@ -263,18 +258,8 @@ def build_object(
             w = w / w.sum()
             load += w[:, None] * np.asarray(f_total, np.float32)[None, :]
         static_load = jnp.asarray(load)
-    small_mesh = element_indices.shape[0] * d * n <= 16_000_000
-    want_mxu = operator_mode == "mxu"
-    # Blocked MXU operator (ops/blocking.py): measured fastest implicit
-    # apply at EVERY 3D size tried (2,776 vs 922 steps/s on the 4k-tet
-    # flagship vs the mxu mode; 7.3× vs graph at 68k tets) — built for
-    # all meshes and preferred by operator_mode="auto" (CG solves).  The
-    # machinery is dimension-generic; 2D gets the same fused-kernel
-    # eligibility (triangles: d+1 = 3 vertices, R = Eb·2).
-    from fem_tpu.ops.blocking import build_blocking
-
-    blocking = build_blocking(element_indices, ref_inv, volume, pos)
     from fem_tpu.ops.assembly import build_jacobi_plan
+    from fem_tpu.strategy import builds_edge_matrix
 
     jac_nb, jac_slots, jac_coeff = build_jacobi_plan(element_indices, n)
     # Two-tier assembly plan (ops/assembly.split_two_tier): vertex valence
@@ -304,15 +289,11 @@ def build_object(
         gather_idx=jnp.asarray(g_lo),
         gather_hi=None if g_hi is None else jnp.asarray(g_hi),
         gather_out=None if g_out is None else jnp.asarray(g_out),
-        # Gate: S costs E·d·N f32 in HBM and 2 reads per operator apply;
-        # viable below 16M entries (64 MB) and only built when the mxu
-        # mode is explicitly requested (the auto path runs blocked).
         edge_matrix=(
             jnp.asarray(build_edge_matrix(element_indices, n))
-            if (want_mxu and small_mesh)
+            if builds_edge_matrix(operator_mode, element_indices.shape[0], n, d)
             else None
         ),
-        blocking=blocking,
         jacobi_nb=jnp.asarray(jac_nb),
         jacobi_slots=jnp.asarray(jac_slots),
         jacobi_coeff=jnp.asarray(jac_coeff),

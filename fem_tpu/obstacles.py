@@ -23,10 +23,9 @@ Obstacle types (SimConfig.obstacles, ``utils/config.ObstacleConfig``):
   distance) and signs it with the ray-parity inside test
   (models/mesh.points_inside_mesh — the native C++ grid-accelerated kernel
   when built); device-side φ is a trilinear sample and the normal a central
-  difference — pure XLA gathers (kept out of Pallas per the no-gather
-  lowering rule, CLAUDE.md).
+  difference — pure XLA gathers.
 
-TPU-native design notes: all obstacle data are small static arrays on the
+Design notes: all obstacle data are small static arrays on the
 ``Obstacles`` pytree; each obstacle is applied sequentially (the reference's
 circle loop semantics — each sees the velocity already modified by the
 previous one) with fixed shapes, so the whole collision pass fuses into the

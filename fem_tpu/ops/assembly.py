@@ -4,10 +4,10 @@
 The reference assembles per-element vertex contributions with Taichi *atomic*
 adds inside GPU kernels (``obj.particles.force[index] += f`` at
 solver/explicit.py:46-49, matrix scatter at solver/implicit.py:151-178, mass
-lumping at object.py:358-360).  Atomics are nondeterministic and do not exist
-in XLA's functional model; the TPU-native equivalent is a segment reduction
-over a flattened (element, local-vertex) axis, which XLA lowers to an efficient
-sorted scatter-add and which is bit-deterministic.
+lumping at object.py:358-360).  The functional equivalent is a segment
+reduction over a flattened (element, local-vertex) axis, which XLA lowers to
+a scatter-add (atomic on a GPU, so its summation order may vary), or the
+per-particle gather plan below, whose sums are deterministic.
 
 ``element_contrib_full`` encodes the reference's universal per-element scatter
 pattern: local vertices ``1..d`` each receive a dim-vector (one column of a
@@ -35,8 +35,8 @@ def segment_assemble(
       num_particles: number of particles N.
       axis_name: when running inside ``shard_map`` with elements sharded over
         a mesh axis, the name of that axis — the local partial sums are
-        ``psum``-reduced over ICI so every shard holds the full assembly
-        (SURVEY §5: the TPU-native replacement for cross-device atomics).
+        ``psum``-reduced so every shard holds the full assembly
+        (SURVEY §5: the replacement for cross-device atomics).
 
     Returns:
       ``(N, k)`` summed contributions (replicated across shards if reduced).
@@ -66,9 +66,9 @@ def segment_assemble_scalar(
 def build_gather_plan(element_indices, num_particles: int):
     """Precompute the per-particle incidence plan for gather-based assembly.
 
-    TPU hardware favors gathers over scatters: instead of scatter-adding
-    ``E·(d+1)`` rows into N particles (a sort-based scatter in XLA), each
-    particle *gathers* its own incident contribution rows and sums them.
+    Instead of scatter-adding ``E·(d+1)`` rows into N particles, each
+    particle *gathers* its own incident contribution rows and sums them —
+    a fixed summation order with no atomics.
     Returns ``(N, max_degree)`` int32 of flattened contribution-row ids
     ``e·(d+1)+l``, padded with the sentinel row ``E·(d+1)`` (an all-zero row
     appended at apply time).
@@ -99,8 +99,7 @@ def split_two_tier(plan, counts, min_saving: float = 0.25):
 
     Tet-mesh vertex valence is skewed (flagship: median 12, maxdeg 56 —
     the single-tier plan gathers 56k rows of which half are sentinel
-    padding), same shape as the block-slot degrees in
-    ops/blocking.Blocking.scatter_lo/hi/out.  Returns ``(lo, hi, out)``:
+    padding).  Returns ``(lo, hi, out)``:
     ``lo`` is ``(N, cap)`` at the row-count-minimizing cap, ``hi``
     ``(N2, maxdeg-cap)`` holds the remaining rows of the ``out`` outlier
     particles (index-added on top).  ``hi``/``out`` are None — and ``lo``

@@ -2,8 +2,9 @@
 """Batched Neo-Hookean element kernels (the compute core).
 
 Every function here is a *batched* pure function over all elements at once —
-the TPU-native replacement for the reference's Taichi kernels that parallelize
-an outer per-element loop with atomic scatter-adds:
+the replacement for the reference's Taichi kernels that parallelize an outer
+per-element loop with atomic scatter-adds; XLA fuses each chain into a few
+kernels:
 
   * deformation gradient + analytic Piola gradient: solver/explicit.py:8-49
   * elastic energy density (autodiff path):          solver/explicit_auto_diff.py:8-31
@@ -179,14 +180,19 @@ def energy_density(
         diff = F - r
         s_tr = sm.trace(sm.matmul(sm.mT(r), F)) - d
         return (
-            mu * jnp.einsum("...ij,...ij->...", diff, diff)
+            mu * jnp.einsum(
+                "...ij,...ij->...", diff, diff,
+                precision=jax.lax.Precision.HIGHEST,
+            )
             + s_lambda / 2.0 * s_tr * s_tr
         )
     if material == "linear":
         eps = 0.5 * (F + sm.mT(F)) - jnp.broadcast_to(
             jnp.eye(d, dtype=F.dtype), F.shape
         )
-        eps_sq = jnp.einsum("...ij,...ij->...", eps, eps)
+        eps_sq = jnp.einsum(
+            "...ij,...ij->...", eps, eps, precision=jax.lax.Precision.HIGHEST
+        )
         tr_e = sm.trace(eps)
         return mu * eps_sq + s_lambda / 2.0 * tr_e * tr_e
     if material == "stvk":
@@ -194,7 +200,9 @@ def energy_density(
             "...ki,...kj->...ij", F, F, precision=jax.lax.Precision.HIGHEST
         )
         g = 0.5 * (c - jnp.broadcast_to(jnp.eye(d, dtype=F.dtype), c.shape))
-        g_sq = jnp.einsum("...ij,...ij->...", g, g)
+        g_sq = jnp.einsum(
+            "...ij,...ij->...", g, g, precision=jax.lax.Precision.HIGHEST
+        )
         tr_g = sm.trace(g)
         return mu * g_sq + s_lambda / 2.0 * tr_g * tr_g
     if _is_fiber(material):
@@ -216,7 +224,9 @@ def energy_density(
             "...ki,...kj->...ij", F, F, precision=jax.lax.Precision.HIGHEST
         )
         i1 = sm.trace(c)
-        i2 = 0.5 * (i1 * i1 - jnp.einsum("...ij,...ij->...", c, c))
+        i2 = 0.5 * (i1 * i1 - jnp.einsum(
+            "...ij,...ij->...", c, c, precision=jax.lax.Precision.HIGHEST
+        ))
         log_j = jnp.log(sm.det(F))  # unclamped, as the reference's NH
         return (
             c1 * (i1 - d)
@@ -312,7 +322,9 @@ def first_piola(
             "...ij,j->...i", F, a_vec, precision=jax.lax.Precision.HIGHEST
         )
         i4 = jnp.sum(fa * fa, axis=-1)[..., None, None]
-        outer = jnp.einsum("...i,j->...ij", fa, a_vec)
+        outer = jnp.einsum(
+            "...i,j->...ij", fa, a_vec, precision=jax.lax.Precision.HIGHEST
+        )
         base = first_piola(F, mu, s_lambda, "stable_neo_hookean")
         return base + 2.0 * k * (i4 - 1.0) * outer
     if _is_mooney(material):
@@ -415,7 +427,9 @@ def von_mises(sigma: jnp.ndarray) -> jnp.ndarray:
         jnp.eye(d, dtype=sigma.dtype), sigma.shape
     )
     return jnp.sqrt(
-        1.5 * jnp.einsum("...ij,...ij->...", dev, dev)
+        1.5 * jnp.einsum(
+            "...ij,...ij->...", dev, dev, precision=jax.lax.Precision.HIGHEST
+        )
     )
 
 
@@ -499,8 +513,12 @@ def first_piola_dp(
         w_dot = jnp.sum(fa * da, axis=-1)[..., None, None]
         base = first_piola_dp(F, D, mu, s_lambda, "stable_neo_hookean", robust)
         return base + 2.0 * k * (
-            2.0 * w_dot * jnp.einsum("...i,j->...ij", fa, a_vec)
-            + (i4 - 1.0) * jnp.einsum("...i,j->...ij", da, a_vec)
+            2.0 * w_dot * jnp.einsum(
+                "...i,j->...ij", fa, a_vec, precision=jax.lax.Precision.HIGHEST
+            )
+            + (i4 - 1.0) * jnp.einsum(
+                "...i,j->...ij", da, a_vec, precision=jax.lax.Precision.HIGHEST
+            )
         )
     if _is_mooney(material):
         # Exact derivative of the Mooney–Rivlin P above, with the same
@@ -567,7 +585,7 @@ def hessian_blocks(
     solver/implicit.py:131).  For the material extensions the same decoupled
     structure with the material's ``DP(F)[R_inv]`` (:func:`first_piola_dp`),
     so every solver/operator built on the one-block-per-element pattern
-    (graph / mxu / blocked / fused, Jacobi rows, diagonal blocks) works for
+    (graph / mxu operators, Jacobi rows, diagonal blocks) works for
     all materials unchanged.
     """
     F = deformation_gradients(pos, element_indices, ref_inv)

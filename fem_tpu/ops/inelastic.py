@@ -32,20 +32,12 @@ Execution: inelastic stress is exposed as *material layers*
 (:func:`material_layers`) — (internal inverse, μ, λ, material) tuples whose
 contributions sum — and every implicit/explicit/Newton execution path
 consumes them by composing the layer's dynamic ``F_i⁻¹`` with its own
-rest-edge inverses (element- or block-ordered): the graph operator, the
-blocked MXU operator with in-VMEM prep (``blocked_prep(ref_inv_flat=…)``
-over ``Blocking.element_perm``), the fused whole-SOLVE kernel (its K/force
-tables are dynamic inputs), Newton's decoupled mode, and the sharded path
-(internal variables replicated; updates shard-local + all_gather).  Differentiable
-stepping traces the yield strain (fem_tpu/diff.py DiffParams).  BOTH
-whole-FRAME kernels run plasticity AND the Maxwell branch IN-KERNEL
-(ops/pallas_blocked_frame.py: state carried as (d², B·Eb) VMEM planes,
-return map / relaxation after each substep's advect/kinematic — flagship
-plastic 2.1× implicit / 1.41× explicit over op-composed).  The return map itself is SVD-free since
-round 5 — Jacobi ``sym_eigh`` on C = FᵀF in component-plane arithmetic
-(the batched ``jnp.linalg.svd`` blew the 16 MB scoped-VMEM QR stack at
-68k tets, and padded (E, d, d) layouts cost ms per materialization —
-BASELINE.md round-5 section).
+rest-edge inverses: the graph and mxu operators, Newton's decoupled mode,
+and the sharded path (internal variables replicated; updates shard-local +
+all_gather).  Differentiable stepping traces the yield strain
+(fem_tpu/diff.py DiffParams).  The return map is SVD-free — a Jacobi
+``sym_eigh`` on C = FᵀF (ops/smallmat.py), elementwise arithmetic with no
+batched linear-algebra library call.
 """
 
 from __future__ import annotations
@@ -93,10 +85,9 @@ def material_layers(obj: FemObject, state: SimState) -> tuple:
     ``fi_inv`` is the per-element internal inverse in MESH element order
     (``None`` means the static ``ref_inv`` — the pure elastic layer).  This
     is the interface that threads inelasticity through every implicit /
-    explicit / Newton execution path (graph, mxu, blocked MXU prep, fused
-    whole-solve kernel): consumers compose ``fi_inv`` with whichever
-    (element- or block-ordered) rest-edge inverses they hold via
-    :func:`layer_ref_inv_local` / :func:`layer_ref_inv_blocked`."""
+    explicit / Newton execution path: consumers compose ``fi_inv`` with the
+    (possibly shard-local) rest-edge inverses they hold via
+    :func:`layer_ref_inv_local`."""
     layers = [(state.plastic_inv, obj.mu, obj.s_lambda, obj.material)]
     if state.viscous_inv is not None:
         layers.append(
@@ -124,53 +115,12 @@ def layer_ref_inv_local(
     return sm.matmul_ew(ref_inv, fi_inv)
 
 
-def layer_ref_inv_blocked(blocking, fi_inv: jnp.ndarray | None) -> jnp.ndarray:
-    """Effective rest-edge inverse for one material layer in BLOCK order
-    (B·Eb, d, d): the dynamic internal inverses gather through
-    ``Blocking.element_perm`` (global element ids — under sharding the
-    internal variables are replicated, so the gather is shard-local)."""
-    if fi_inv is None:
-        return blocking.ref_inv
-    return sm.matmul_ew(blocking.ref_inv, fi_inv[blocking.element_perm])
-
-
-def layer_ref_planes_blocked(
-    blocking, fi_inv: jnp.ndarray | None, dim: int
-) -> jnp.ndarray | None:
-    """:func:`layer_ref_inv_blocked` in PLANE layout: (B, d², Eb) with plane
-    i·d+j = component (i, j) — the layout ``blocked_prep(ref_planes=…)``
-    consumes directly.
-
-    The flat (B·Eb, d, d) form materializes padded (·, 8, 128)-tiled
-    intermediates every substep, measured ~8 ms/substep in-frame at 68k
-    tets (round-5 bisect: a numerically-zero but loop-variant internal
-    update alone dropped 607 → 102 steps/s).  Here the only big transport
-    is one (E, d²) row gather; the compose runs on compact (B, d², Eb)
-    planes.  Returns None for the pure-elastic layer (prep then uses its
-    static tables — XLA hoists them out of the substep scan)."""
-    if fi_inv is None:
-        return None
-    b, eb = blocking.num_blocks, blocking.eb
-    d2 = dim * dim
-    ref_p = blocking.ref_inv.reshape(b, eb, d2).transpose(0, 2, 1)
-    p9 = fi_inv.reshape(-1, d2)[blocking.element_perm]  # (B·Eb, d²) rows
-    pi_p = p9.reshape(b, eb, d2).transpose(0, 2, 1)  # (B, d², Eb) compact
-    out = []
-    for i in range(dim):
-        for j in range(dim):
-            s = ref_p[:, i * dim, :] * pi_p[:, j, :]
-            for k in range(1, dim):
-                s = s + ref_p[:, i * dim + k, :] * pi_p[:, k * dim + j, :]
-            out.append(s)
-    return jnp.stack(out, axis=1)
-
-
 def _log_strain(F: jnp.ndarray):
     """Principal log strains of a batch of (E, d, d) matrices WITHOUT an SVD:
     Jacobi eigendecomposition of C = FᵀF = V·diag(σ²)·Vᵀ (pure elementwise
-    VPU math — the batched ``jnp.linalg.svd`` lowers to a QR custom call
-    whose scoped-VMEM stack blows the 16 MB limit past ~50k elements on
-    this backend; measured at 68,508 tets, round 5).  Returns (ε, V) with
+    math that fuses with its neighbours, where a batched
+    ``jnp.linalg.svd`` would be a separate library call per substep).
+    Returns (ε, V) with
     singular values clamped away from zero so an (inverted/collapsed)
     element yields finite strains instead of NaNs."""
     c = sm.gram(F)
@@ -185,108 +135,6 @@ def _principal_rescale(F: jnp.ndarray, delta_eps: jnp.ndarray, v: jnp.ndarray):
     Δε = 0 rows return F to roundoff (no SVD roundtrip error)."""
     m = sm.matmul_ew(v * jnp.exp(delta_eps)[..., None, :], sm.mT(v))
     return sm.matmul_ew(F, m)
-
-
-# ---------------------------------------------------------------------------
-# Component-plane small-matrix math (lists indexed c = i·d + j).
-#
-# The blocked fast path keeps EVERY per-element matrix as d² compact
-# (B, Eb) planes: (E, d, d) tensors tile to padded (·, 8, 128) layouts on
-# TPU, and a round-5 in-frame bisect measured each materialized batch
-# costing milliseconds at 68k elements (BASELINE.md round-5 section) —
-# plane arithmetic is the same trick the element chain and the Pallas
-# kernels use everywhere else.
-# ---------------------------------------------------------------------------
-
-def _p_matmul(a, b, d):
-    out = []
-    for i in range(d):
-        for j in range(d):
-            s = a[i * d] * b[j]
-            for k in range(1, d):
-                s = s + a[i * d + k] * b[k * d + j]
-            out.append(s)
-    return out
-
-
-def _p_det(a, d):
-    if d == 2:
-        return a[0] * a[3] - a[1] * a[2]
-    return (
-        a[0] * (a[4] * a[8] - a[5] * a[7])
-        - a[1] * (a[3] * a[8] - a[5] * a[6])
-        + a[2] * (a[3] * a[7] - a[4] * a[6])
-    )
-
-
-def _p_adjugate(a, d):
-    if d == 2:
-        return [a[3], -a[1], -a[2], a[0]]
-    return [
-        a[4] * a[8] - a[5] * a[7],
-        a[2] * a[7] - a[1] * a[8],
-        a[1] * a[5] - a[2] * a[4],
-        a[5] * a[6] - a[3] * a[8],
-        a[0] * a[8] - a[2] * a[6],
-        a[2] * a[3] - a[0] * a[5],
-        a[3] * a[7] - a[4] * a[6],
-        a[1] * a[6] - a[0] * a[7],
-        a[0] * a[4] - a[1] * a[3],
-    ]
-
-
-def _p_log_strain(f, d):
-    """Plane form of :func:`_log_strain`: C = FᵀF components → Jacobi core →
-    (ε list of d planes, v dict)."""
-    c = {}
-    for i in range(d):
-        for j in range(i, d):
-            s = f[i] * f[j]
-            for k in range(1, d):
-                s = s + f[k * d + i] * f[k * d + j]
-            c[(i, j)] = s
-    a, v = sm.sym_eigh_core(c, d)
-    eps = []
-    for k in range(d):
-        s = jnp.sqrt(jnp.maximum(a[(k, k)], 1e-12))
-        eps.append(jnp.log(jnp.maximum(s, 1e-6)))
-    return eps, v
-
-
-def _p_principal_rescale(f, delta, v, d):
-    """Plane form of :func:`_principal_rescale`: F·(V·diag(exp Δε)·Vᵀ)."""
-    e = [jnp.exp(dk) for dk in delta]
-    m = []
-    for i in range(d):
-        for j in range(d):
-            s = v[(i, 0)] * e[0] * v[(j, 0)]
-            for k in range(1, d):
-                s = s + v[(i, k)] * e[k] * v[(j, k)]
-            m.append(s)
-    return _p_matmul(f, m, d)
-
-
-def _p_plastic_return(f_e, yield_eps, d):
-    eps, v = _p_log_strain(f_e, d)
-    mean = eps[0]
-    for k in range(1, d):
-        mean = mean + eps[k]
-    mean = mean / d
-    dev = [ek - mean for ek in eps]
-    nrm2 = dev[0] * dev[0]
-    for k in range(1, d):
-        nrm2 = nrm2 + dev[k] * dev[k]
-    nrm = jnp.sqrt(nrm2)
-    yielded = nrm > yield_eps
-    scale = jnp.where(yielded, yield_eps / jnp.maximum(nrm, 1e-30), 1.0)
-    delta = [dk * (scale - 1.0) for dk in dev]
-    return _p_principal_rescale(f_e, delta, v, d), yielded
-
-
-def _p_viscous_relax(f_be, dt, tau, d):
-    eps, v = _p_log_strain(f_be, d)
-    decay = jnp.exp(-dt / tau) - 1.0
-    return _p_principal_rescale(f_be, [ek * decay for ek in eps], v, d)
 
 
 def plastic_return_map(
@@ -312,56 +160,6 @@ def viscous_relax(fbe_trial: jnp.ndarray, dt: float, tau: float) -> jnp.ndarray:
     strains decay by exp(−dt/τ)."""
     eps, v = _log_strain(fbe_trial)
     return _principal_rescale(fbe_trial, eps * (jnp.exp(-dt / tau) - 1.0), v)
-
-
-def _advance_planes(obj: FemObject, state: SimState, dt: float, blk) -> SimState:
-    """Blocked plane-layout internal-variable update: the whole chain (edge
-    matrices → F → trial strain → return map / relaxation → new internal
-    inverse) runs on compact (B, Eb) component planes in block order; the
-    only (E, d, d)-shaped arrays are the state fields at the boundary.
-    Numerically identical to the row form up to f32 reassociation (the
-    plane ops are the same three-term sums)."""
-    from fem_tpu.ops.blocking import blocked_edge_planes
-
-    d = obj.dim
-    d2 = d * d
-    b, eb = blk.num_blocks, blk.eb
-    xt = blocked_edge_planes(blk, state.pos, d)
-    x = [xt[:, c, :] for c in range(d2)]
-    ref_p = blk.ref_inv.reshape(b, eb, d2).transpose(0, 2, 1)
-    rl = [ref_p[:, c, :] for c in range(d2)]
-    F = _p_matmul(x, rl, d)
-    det = _p_det(F, d)
-    ok = det > 1e-9
-    eye = [1.0 if (c // d) == (c % d) else 0.0 for c in range(d2)]
-    f_safe = [jnp.where(ok, F[c], eye[c]) for c in range(d2)]
-    adj = _p_adjugate(f_safe, d)
-    det_safe = _p_det(f_safe, d)
-    f_inv = [adj[c] / det_safe for c in range(d2)]
-
-    def gather_planes(fi_inv):
-        p9 = fi_inv.reshape(-1, d2)[blk.element_perm]
-        return list(p9.reshape(b, eb, d2).transpose(2, 0, 1))
-
-    def write_back(planes, upd, old):
-        sel = [jnp.where(upd, planes[c], old[c]) for c in range(d2)]
-        flat = jnp.stack(sel, axis=1).transpose(0, 2, 1).reshape(b * eb, d2)
-        return flat[blk.element_slot].reshape(-1, d, d)
-
-    new = {}
-    if state.plastic_inv is not None:
-        p = gather_planes(state.plastic_inv)
-        fe = _p_matmul(F, p, d)
-        fe_new, yielded = _p_plastic_return(fe, obj.plastic_yield, d)
-        fp_new = _p_matmul(f_inv, fe_new, d)
-        new["plastic_inv"] = write_back(fp_new, ok & yielded, p)
-    if state.viscous_inv is not None:
-        vch = gather_planes(state.viscous_inv)
-        fbe = _p_matmul(F, vch, d)
-        fbe_new = _p_viscous_relax(fbe, dt, obj.viscous_tau, d)
-        fv_new = _p_matmul(f_inv, fbe_new, d)
-        new["viscous_inv"] = write_back(fv_new, ok, vch)
-    return state.replace(**new)
 
 
 def advance_internal(
@@ -394,17 +192,6 @@ def advance_internal(
             return local
         return jax.lax.all_gather(local, axis_name, tiled=True)
 
-    blk = getattr(obj, "blocking", None)
-    if (
-        axis_name is None
-        and blk is not None
-        and getattr(blk, "element_slot", None) is not None
-    ):
-        # Blocked plane-layout update: in-VMEM edge matrices + compact
-        # (B, Eb) component-plane arithmetic end-to-end — the row form's
-        # XLA edge gather and padded (E, d, d) intermediates measured
-        # ~16 ms/substep combined in-frame at 68k tets (round-5 bisect).
-        return _advance_planes(obj, state, dt, blk)
     F = deformation_gradients(state.pos, obj.element_indices, obj.ref_inv)
     ok = (sm.det(F) > 1e-9)[..., None, None]
     # A guarded inverse so frozen (inverted) elements never see NaNs.

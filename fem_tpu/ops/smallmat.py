@@ -2,9 +2,10 @@
 """Batched closed-form small-matrix primitives (dim ∈ {2, 3}).
 
 The whole FEM compute path operates on dense batches of dim×dim matrices
-``(E, d, d)``.  On TPU, generic ``jnp.linalg`` batched inverses lower to
-expensive/serial code; closed-form cofactor formulas stay fully elementwise
-(VPU-friendly, fusable by XLA), which is the idiomatic replacement for the
+``(E, d, d)``.  Generic ``jnp.linalg`` batched inverses lower to library
+calls per batch; closed-form cofactor formulas stay fully elementwise
+(fusable by XLA into the surrounding element chain), which is the idiomatic
+replacement for the
 reference's per-element ``ti.math.inverse`` / ``.determinant()`` calls
 (reference: solver/explicit.py:23-24, solver/implicit.py:84,128).
 
@@ -141,8 +142,9 @@ def mT(m: jnp.ndarray) -> jnp.ndarray:
 def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched (..., d, d) @ (..., d, d).
 
-    Full-f32 precision: TPU matmuls default to bf16 passes, which is far too
-    coarse for deformation gradients (F at rest must be I to f32 epsilon).
+    Full-f32 precision: a float32 matmul may otherwise run in reduced
+    precision (TF32 on GPUs), far too coarse for deformation gradients
+    (F at rest must be I to f32 epsilon).
     """
     return jnp.einsum(
         "...ij,...jk->...ik", a, b, precision=jax.lax.Precision.HIGHEST
@@ -151,10 +153,9 @@ def matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 def matmul_ew(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched (..., d, d) @ (..., d, d) as explicit componentwise
-    multiply-adds.  For full-mesh (E, d, d) batches the einsum form's tiny
-    trailing axes land on the 128-lane dimension (measured ~4 ms per call
-    at 68k elements on TPU vs ~0.1 ms in this form); each output component
-    is an exact f32 three-term sum — no precision flag needed."""
+    multiply-adds: elementwise arithmetic that fuses with its neighbours;
+    each output component is an exact f32 three-term sum — no precision
+    flag needed."""
     d = a.shape[-1]
     rows = []
     for i in range(d):
@@ -204,12 +205,9 @@ def polar_rotation(m: jnp.ndarray, iters: int = 12) -> jnp.ndarray:
 def sym_eigh_core(a: dict, d: int, sweeps: int = 6):
     """Cyclic-Jacobi eigendecomposition on COMPONENT PLANES: ``a`` maps
     (i, j) with i ≤ j to the symmetric matrix's (...,)-shaped component
-    arrays (any shape — (E,) vectors, (B, Eb) planes, …).  Returns the
-    rotated-diagonal dict (eigenvalues at (i, i)) and the accumulated
-    rotation dict v[(i, j)] with A = V·diag(w)·Vᵀ.  This is the whole
-    algorithm of :func:`sym_eigh`; the plane form exists so callers that
-    already hold component planes (the inelastic return map in block
-    layout) never materialize padded (E, d, d) tensors."""
+    arrays (any shape).  Returns the rotated-diagonal dict (eigenvalues at
+    (i, i)) and the accumulated rotation dict v[(i, j)] with
+    A = V·diag(w)·Vᵀ.  This is the whole algorithm of :func:`sym_eigh`."""
     pairs = [(0, 1)] if d == 2 else [(0, 1), (0, 2), (1, 2)]
     a = dict(a)
     one = jnp.ones_like(a[(0, 0)])
@@ -256,15 +254,10 @@ def sym_eigh(m: jnp.ndarray, sweeps: int = 6):
     cyclic Jacobi rotations.  Returns ``(w, V)`` with ``m ≈ V·diag(w)·Vᵀ``
     (V orthogonal to ~f32 roundoff; eigenvalues NOT sorted).
 
-    Pure elementwise VPU math — the batched ``jnp.linalg.svd/eigh`` lower to
-    a QR-decomposition custom call whose scoped-VMEM stack allocation
-    exceeds this backend's 16 MB limit past ~50k 3×3 matrices (measured: the
-    68,508-tet plasticity return map failed to compile).  The rotations are
-    applied COMPONENTWISE on (...,)-shaped planes — a first cut that built
-    per-rotation G matrices and used batched 3×3 ``matmul`` measured ~450 ms
-    per call at 68k elements on TPU (the tiny trailing axes land on the
-    128-lane dimension, wasting 42/43 of every vector op), vs ~1 ms in this
-    form.  d = 2 is exact in one rotation; d = 3 cyclic Jacobi converges
+    Pure elementwise math that fuses with the surrounding element chain,
+    where the batched ``jnp.linalg.svd/eigh`` would each be a separate
+    library call.  The rotations are applied COMPONENTWISE on (...,)-shaped
+    planes.  d = 2 is exact in one rotation; d = 3 cyclic Jacobi converges
     quadratically (6 sweeps reach f32 roundoff with margin).
     """
     d = m.shape[-1]

@@ -1,14 +1,14 @@
 # coding=utf-8
-"""Multi-chip scaling: element-sharded simulation over a device mesh.
+"""Multi-device scaling: element-sharded simulation over a device mesh.
 
 The reference is a single-process single-GPU program whose only parallelism is
 Taichi's auto-parallelized outer kernel loop with atomic adds (SURVEY §2).
-The honest TPU analogue is *data parallelism over elements*: element arrays
+The multi-device analogue is *data parallelism over elements*: element arrays
 (indices, ref_inv, volume) are sharded along a 1-D ``jax.sharding.Mesh`` axis,
 each shard computes its local per-element math and local segment-sum, and one
-``psum`` over ICI produces the fully assembled per-particle quantities,
-replicated on every shard.  Particle-space solver iterations (CG/Jacobi) then
-run replicated — identical arithmetic on every chip — so only one small (N·d)
+``psum`` over the interconnect produces the fully assembled per-particle
+quantities, replicated on every shard.  Particle-space solver iterations (CG/Jacobi) then
+run replicated — identical arithmetic on every device — so only one small (N·d)
 collective per operator application crosses the interconnect per iteration.
 
 Padding: element counts rarely divide the mesh size, so shards are padded by
@@ -40,16 +40,12 @@ def pad_elements(obj: FemObject, multiple: int) -> FemObject:
     target = ((e + multiple - 1) // multiple) * multiple
     pad = target - e
     if pad == 0:
-        # The sharded path assembles by segment-sum + psum (VERDICT r4
-        # #2c, recorded): the two-tier gather plan's slot indices are
-        # GLOBAL over the B·Pb block slots, so a shard would gather rows
-        # it does not hold; a per-shard rebuilt plan is possible but buys
-        # nothing — halo particles span shards, so the psum over the
-        # (N, d) particle space is needed regardless, and the plan only
-        # accelerates the pre-psum local scatter (≤15% of a substep on
-        # one chip, less once the collective is in the path).  Drop the
-        # plan so every remaining array leaf has a PartitionSpec in the
-        # shard_map spec pytrees below.
+        # The sharded path assembles by segment-sum + psum: the gather
+        # plan's row indices are GLOBAL over all elements, so a shard
+        # would gather rows it does not hold, and halo particles span
+        # shards, so the psum over the (N, d) particle space is needed
+        # regardless.  Drop the two-tier plan so every remaining array
+        # leaf has a PartitionSpec in the shard_map spec pytrees below.
         return obj.replace(gather_hi=None, gather_out=None)
     idx = jnp.concatenate(
         [obj.element_indices, jnp.tile(obj.element_indices[:1], (pad, 1))]
@@ -84,42 +80,8 @@ def pad_elements(obj: FemObject, multiple: int) -> FemObject:
         gather_out=None,
         jacobi_slots=jac_slots,
         jacobi_coeff=jac_coeff,
-        edge_matrix=None,  # MXU operator mode is single-chip only
+        edge_matrix=None,  # the "mxu" operator mode is single-device only
     )
-
-
-def _uses_blocked(obj: FemObject, cfg: SimConfig) -> bool:
-    """Whether the sharded substep will run the blocked MXU operator: the
-    implicit-CG path with a block partition attached (the same preference as
-    single-chip ``operator_mode="auto"``)."""
-    from fem_tpu.utils.config import CONJUGATE_GRADIENT_METHOD
-
-    return (
-        not cfg.auto_diff
-        and not cfg.use_explicit_method
-        and cfg.implicit_method == CONJUGATE_GRADIENT_METHOD
-        and cfg.operator_mode in ("auto", "blocked", "fused")
-        and obj.blocking is not None
-    )
-
-
-def _sharded_blocking(obj: FemObject, cfg: SimConfig, n_shards: int):
-    """(padded blocking, its PartitionSpec pytree, local block count) for the
-    block-sharded operator, or (None, None, 0) when the config's method does
-    not use it.  Locality blocks (ops/blocking.py) partition *whole* across
-    devices: each shard runs its S_b/K_b MXU dots locally and one psum over
-    the (N·d) particle space completes each operator application."""
-    if not _uses_blocked(obj, cfg):
-        return None, None, 0
-    from fem_tpu.ops.blocking import pad_blocking
-
-    blk = pad_blocking(obj.blocking, n_shards)
-    spec = blk.replace(
-        block_particles=P(AXIS), plus=P(AXIS), minus=P(AXIS),
-        element_indices=P(AXIS), ref_inv=P(AXIS), volume=P(AXIS),
-        element_perm=P(AXIS),
-    )
-    return blk, spec, blk.num_blocks // n_shards
 
 
 def make_element_mesh(
@@ -176,7 +138,6 @@ def _sharded_kwargs(cfg: SimConfig) -> dict:
         jacobi_sweep=cfg.jacobi_sweep,
         cg_precond=cfg.cg_precond,
         robust_inversion=cfg.robust_inversion,
-        element_backend=cfg.element_backend,
         hessian=cfg.hessian,
         integrator=cfg.integrator,
         newton_iters=cfg.newton_iters,
@@ -186,34 +147,27 @@ def _sharded_kwargs(cfg: SimConfig) -> dict:
         newton_theta=cfg.newton_theta,
         wall_friction=cfg.wall_friction,
         axis_name=AXIS,
-        solver_backend="matrix_free",  # dense backend is single-chip only
-        # "fused" is the single-chip whole-solve kernel; under sharding it
-        # resolves to the blocked operator (same auto preference).
-        operator_mode="auto" if cfg.operator_mode == "fused"
-        else cfg.operator_mode,
+        solver_backend="matrix_free",  # dense backend is single-device only
+        operator_mode=cfg.operator_mode,
     )
 
 
 def _prep_body(obj: FemObject, cfg: SimConfig, n_shards: int):
-    """(padded object, its PartitionSpec pytree, local element count, local
-    block count) for one body: element arrays shard over the mesh axis,
-    particle arrays replicate, implicit-CG configs keep the blocked MXU
-    operator sharded whole-blocks (fused VMEM tables stay single-chip)."""
+    """(padded object, its PartitionSpec pytree, local element count) for
+    one body: element arrays shard over the mesh axis, particle arrays
+    replicate."""
     padded = pad_elements(obj, n_shards)
     if padded.element_cnt == obj.element_cnt:
         # pad_elements may have returned the object unchanged; the sharded
         # path never uses the dense edge matrix, so drop it (it would need a
         # PartitionSpec otherwise).
         padded = padded.replace(edge_matrix=None)
-    blk, blk_spec, local_blocks = _sharded_blocking(obj, cfg, n_shards)
-    padded = padded.replace(blocking=blk)
     local_cnt = padded.element_cnt // n_shards
     # Built with .replace so the spec pytree's static fields match `padded`'s.
     obj_spec = padded.replace(
         element_indices=P(AXIS), ref_inv=P(AXIS), volume=P(AXIS),
         mass=P(), rest_pos=P(), faces=P(), gather_idx=P(),
         jacobi_nb=P(), jacobi_slots=P(AXIS), jacobi_coeff=P(AXIS),
-        blocking=blk_spec,
     )
     if padded.free_mask is not None:
         obj_spec = obj_spec.replace(free_mask=P())  # particle-space: replicate
@@ -223,17 +177,12 @@ def _prep_body(obj: FemObject, cfg: SimConfig, n_shards: int):
         obj_spec = obj_spec.replace(pin_vel=P())  # particle-space: replicate
     if padded.agg_ids is not None:  # coarse space: replicate
         obj_spec = obj_spec.replace(agg_ids=P(), agg_basis=P())
-    return padded, obj_spec, local_cnt, local_blocks
+    return padded, obj_spec, local_cnt
 
 
-def _localize(obj_shard: FemObject, local_cnt: int, local_blocks: int):
+def _localize(obj_shard: FemObject, local_cnt: int):
     """Rewrite a shard's static counts (shard_map slices only the arrays)."""
-    local = obj_shard.replace(element_cnt=local_cnt, assembly_mode="segment")
-    if local.blocking is not None:
-        local = local.replace(
-            blocking=local.blocking.replace(num_blocks=local_blocks)
-        )
-    return local
+    return obj_shard.replace(element_cnt=local_cnt, assembly_mode="segment")
 
 
 def _state_spec_for(obj: FemObject, batch: str | None = None) -> SimState:
@@ -255,9 +204,7 @@ def _build(obj: FemObject, cfg: SimConfig, mesh: Mesh, scan_frame: bool):
     which all_gathers back to replicated (advance_internal)."""
     inelastic = obj.plastic_yield > 0.0 or obj.viscous_mu > 0.0
     n_shards = mesh.devices.size
-    padded, obj_spec, local_cnt, local_blocks = _prep_body(
-        obj, cfg, n_shards
-    )
+    padded, obj_spec, local_cnt = _prep_body(obj, cfg, n_shards)
 
     state_spec = _state_spec_for(obj)
     # Pytree-prefix spec: one replicated P() covers every obstacle
@@ -268,7 +215,7 @@ def _build(obj: FemObject, cfg: SimConfig, mesh: Mesh, scan_frame: bool):
     kwargs = _sharded_kwargs(cfg)
 
     def local_fn(obj_shard: FemObject, state, obstacles):
-        local = _localize(obj_shard, local_cnt, local_blocks)
+        local = _localize(obj_shard, local_cnt)
         if scan_frame:
             def body(s, _):
                 return substep(local, s, obstacles, **kwargs)
@@ -281,8 +228,9 @@ def _build(obj: FemObject, cfg: SimConfig, mesh: Mesh, scan_frame: bool):
         mesh=mesh,
         in_specs=(obj_spec, state_spec, obs_spec),
         out_specs=(state_spec, aux_spec),
-        # Pallas out_shapes carry no varying-mesh-axes metadata; correctness
-        # of the psum placement is pinned by the parity tests instead.
+        # Particle-space results are replicated by construction (every
+        # shard runs the same arithmetic on psum-reduced inputs);
+        # correctness of the psum placement is pinned by the parity tests.
         check_vma=False,
     )
 
@@ -319,17 +267,15 @@ def make_batched_sharded_frame_fn(obj: FemObject, cfg: SimConfig, mesh: Mesh):
     """Composed parallelism over a 2-D ``("batch", "elem")`` device mesh:
     ensemble members shard over ``batch`` (independent — zero collectives)
     while each member's elements shard over ``elem`` (one ``psum`` per
-    assembly).  This is the full SPMD story: B·S chips simulate B·S-times the
-    work of one chip with only the small per-iteration ICI reduction.
+    assembly).  B·S devices simulate B·S-times the work of one device with
+    only the small per-iteration particle-space reduction.
 
     Call with a batched :class:`SimState` (leading axis divisible by the
     batch-mesh size) and unbatched obstacles.
     """
     n_elem_shards = mesh.shape[AXIS]
     inelastic = obj.plastic_yield > 0.0 or obj.viscous_mu > 0.0
-    padded, obj_spec, local_cnt, local_blocks = _prep_body(
-        obj, cfg, n_elem_shards
-    )
+    padded, obj_spec, local_cnt = _prep_body(obj, cfg, n_elem_shards)
 
     state_spec = _state_spec_for(obj, batch="batch")
     # Pytree-prefix spec: one replicated P() covers every obstacle
@@ -340,7 +286,7 @@ def make_batched_sharded_frame_fn(obj: FemObject, cfg: SimConfig, mesh: Mesh):
     kwargs = _sharded_kwargs(cfg)
 
     def local_fn(obj_shard: FemObject, states, obstacles):
-        local = _localize(obj_shard, local_cnt, local_blocks)
+        local = _localize(obj_shard, local_cnt)
 
         def one(state):
             def body(s, _):
@@ -355,8 +301,9 @@ def make_batched_sharded_frame_fn(obj: FemObject, cfg: SimConfig, mesh: Mesh):
         mesh=mesh,
         in_specs=(obj_spec, state_spec, obs_spec),
         out_specs=(state_spec, aux_spec),
-        # Pallas out_shapes carry no varying-mesh-axes metadata; correctness
-        # of the psum placement is pinned by the parity tests instead.
+        # Particle-space results are replicated by construction (every
+        # shard runs the same arithmetic on psum-reduced inputs);
+        # correctness of the psum placement is pinned by the parity tests.
         check_vma=False,
     )
     jit_sharded = jax.jit(sharded)
@@ -424,7 +371,6 @@ def make_sharded_contact_frame_fn(
     padded_objs = tuple(p[0] for p in prepped)
     obj_specs = tuple(p[1] for p in prepped)
     local_cnts = tuple(p[2] for p in prepped)
-    local_blockss = tuple(p[3] for p in prepped)
     inelastic = any(
         o.plastic_yield > 0.0 or o.viscous_mu > 0.0 for o in objs
     )
@@ -434,10 +380,7 @@ def make_sharded_contact_frame_fn(
     aux_spec = tuple(StepAux(P(), P()) for _ in objs)
 
     def local_fn(objs_shard, plan_, states, obstacles):
-        locals_ = [
-            _localize(o, c, b)
-            for o, c, b in zip(objs_shard, local_cnts, local_blockss)
-        ]
+        locals_ = [_localize(o, c) for o, c in zip(objs_shard, local_cnts)]
 
         def body(ss, _):
             forces = contact_forces_all(

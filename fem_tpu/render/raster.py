@@ -1,7 +1,7 @@
 # coding=utf-8
 """Headless rendering: offscreen rasterization to RGB frames.
 
-TPU hosts have no display, so the reference's interactive ``ti.GUI`` /
+Accelerator hosts have no display, so the reference's interactive ``ti.GUI`` /
 ``ti.ui.Window`` (render/render.py:26,30-43) becomes an offscreen matplotlib
 Agg rasterizer producing the same imagery: 2D triangles colored by per-element
 energy plus particle/obstacle circles (render/render.py:64-84), and a 3D

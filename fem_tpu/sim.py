@@ -23,6 +23,7 @@ from fem_tpu.solvers.explicit import (
     autodiff_energy_gradient,
 )
 from fem_tpu.solvers.implicit import implicit_velocity_solve
+from fem_tpu.strategy import uses_dense_solver
 from fem_tpu.utils.config import SimConfig
 
 
@@ -47,7 +48,6 @@ def substep(
     preconditioned: int,
     axis_name: str | None = None,
     solver_backend: str = "auto",
-    element_backend: str = "xla",
     robust_inversion: bool = False,
     hessian: str = "reference",
     operator_mode: str = "graph",
@@ -82,17 +82,11 @@ def substep(
             if external_force is None
             else external_force + obj.static_load
         )
-    # Advection stays on the XLA path: the fused Pallas advection kernels
-    # (ops/pallas_advect.py) are parity-exact but measured 4x SLOWER here —
-    # their (N, d) layout has d lanes, forcing Mosaic relayouts that cost
-    # more than the ~8 fused XLA ops they replace.  (The element-column
-    # kernels use the component-planar layout and do win.)
-    advect_backend = "xla"
     # Inelastic material extensions (plastic_yield / viscous_mu,
     # fem_tpu/ops/inelastic.py): the stress decomposes into MATERIAL LAYERS
     # (base material on ref_inv·F_p⁻¹ + optional Maxwell branch) that every
-    # execution path sums natively — graph/mxu/blocked/fused-solve operators,
-    # explicit blocked prep, Newton decoupled/exact — and
+    # execution path sums natively — graph/mxu operators, the explicit
+    # gradient, Newton decoupled/exact — and
     # ``advance_internal`` updates the internal state after advection.
     inelastic = obj.plastic_yield > 0.0 or obj.viscous_mu > 0.0
     layers = None
@@ -117,21 +111,17 @@ def substep(
             # The analytic inelastic gradient IS the gradient of the total
             # (base + branch) energy at frozen internal variables, so the
             # autodiff and analytic dispatches coincide here — both run the
-            # layered analytic chain (blocked MXU prep where attached).
-            grad = analytic_energy_gradient(
-                obj, state.pos, axis_name, element_backend, layers
-            )
+            # layered analytic chain.
+            grad = analytic_energy_gradient(obj, state.pos, axis_name, layers)
         elif auto_diff:
             grad = autodiff_energy_gradient(obj, state.pos, axis_name)
         else:
-            grad = analytic_energy_gradient(
-                obj, state.pos, axis_name, element_backend
-            )
+            grad = analytic_energy_gradient(obj, state.pos, axis_name)
         if external_force is not None:
             grad = grad - external_force
         state = kinematic_step(
             state, grad, obj.mass, obstacles, dt, obj.damping, g_dir,
-            advect_backend, obj.free_mask, obj.pin_vel, wall_friction,
+            obj.free_mask, obj.pin_vel, wall_friction,
         )
         if inelastic:
             state = advance_internal(obj, state, dt, axis_name)
@@ -168,7 +158,6 @@ def substep(
             obj, state, dt, axis_name,
             max_newton=newton_iters, cg_iters=newton_cg_iters,
             tol=newton_tol, hessian_mode=newton_hessian,
-            element_backend=element_backend,
             # "reference"/"none" both mean plain CG inside Newton (there is
             # no normal-equations variant here); "block_jacobi" turns on
             # the mass-symmetrized PCG inner solves and "two_level" the
@@ -186,27 +175,20 @@ def substep(
             v_n_pos=vel_unfolded,
         )
         state = advect_implicit_step(
-            state, obstacles, dt, obj.damping, g_dir, advect_backend,
+            state, obstacles, dt, obj.damping, g_dir,
             obj.free_mask, obj.pin_vel, wall_friction,
             theta=newton_theta, vel_pos_old=vel_pos_old,
         )
         if inelastic:
             state = advance_internal(obj, state, dt, axis_name)
         return state, StepAux(solve_aux.iterations, solve_aux.residual)
-    # Measured on TPU v5e (tools/profile_parts.py): with the reference's
-    # absolute CG tolerance the solver converges in a handful of iterations,
-    # and the O(E) matrix-free operator beats dense materialization at every
-    # mesh size tried — so "auto" resolves to matrix-free and dense stays an
-    # explicit opt-in for high-iteration-count regimes.
-    # The dense backend materializes the reference block Hessian; the
-    # exact-JVP operator is matrix-free only.
-    use_dense = (
-        solver_backend == "dense"
-        and axis_name is None
-        and hessian == "reference"
-        and cg_precond == "reference"
-        and not inelastic  # layered operators are matrix-free-only
-        and obj.free_mask is None  # Dirichlet projection is matrix-free-only
+    use_dense = uses_dense_solver(
+        solver_backend,
+        sharded=axis_name is not None,
+        hessian=hessian,
+        cg_precond=cg_precond,
+        inelastic=inelastic,
+        constrained=obj.free_mask is not None,
     )
     if use_dense:
         from fem_tpu.solvers.dense import implicit_velocity_solve_dense
@@ -218,11 +200,11 @@ def substep(
     else:
         state, solve_aux = implicit_velocity_solve(
             obj, state, dt, implicit_method, preconditioned, axis_name,
-            robust_inversion, element_backend, hessian, operator_mode,
+            robust_inversion, hessian, operator_mode,
             jacobi_sweep, cg_precond, layers,
         )
     state = advect_implicit_step(
-        state, obstacles, dt, obj.damping, g_dir, advect_backend,
+        state, obstacles, dt, obj.damping, g_dir,
         obj.free_mask, obj.pin_vel, wall_friction,
     )
     if inelastic:
@@ -239,7 +221,6 @@ def _cfg_kwargs(cfg: SimConfig) -> dict:
         implicit_method=cfg.implicit_method,
         preconditioned=cfg.preconditioned,
         solver_backend=cfg.solver_backend,
-        element_backend=cfg.element_backend,
         robust_inversion=cfg.robust_inversion,
         hessian=cfg.hessian,
         operator_mode=cfg.operator_mode,
@@ -257,243 +238,25 @@ def _cfg_kwargs(cfg: SimConfig) -> dict:
 
 # NOTE on jit structure: the mesh arrays (element indices, ref_inv, volumes,
 # masses, incidence plans) MUST be jit *arguments*, not closure captures.
-# Captured arrays become XLA constants; measured on this TPU backend that
-# made a 131k-element kernel compile ~15x slower AND run ~250x slower
-# (10.5 ms vs 41 us) than the same kernel with the arrays passed as inputs.
-
-
-def _circles_only(cfg: SimConfig) -> bool:
-    """The fused whole-frame kernels implement the reference advection
-    semantics only: circle obstacles (frictionless spheres fold into the
-    circle arrays) and frictionless walls.  SDF obstacle extensions,
-    frictional spheres and wall friction run the op-composed path."""
-    return cfg.wall_friction == 0.0 and all(
-        o.type == "sphere" and o.friction == 0.0 for o in cfg.obstacles
-    )
-
-
-def supports_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
-    """Eligibility for the whole-frame blocked kernel
-    (ops/pallas_blocked_frame.py): the 3D implicit-CG reference path with
-    the fused VMEM tables built, and no backend override that asks for a
-    different execution strategy."""
-    from fem_tpu.utils.config import CONJUGATE_GRADIENT_METHOD
-
-    return (
-        obj.dim in (2, 3)
-        and not cfg.adaptive_dt
-        and _circles_only(cfg)
-        and cfg.integrator == "semi_implicit"
-        and not cfg.use_explicit_method
-        and not cfg.auto_diff
-        and cfg.implicit_method == CONJUGATE_GRADIENT_METHOD
-        and cfg.hessian == "reference"
-        and cfg.operator_mode in ("auto", "fused")
-        and cfg.element_backend in ("auto", "pallas")
-        and cfg.solver_backend == "auto"
-        and cfg.cg_precond in ("reference", "none")
-        and obj.free_mask is None
-        and obj.static_load is None
-        and obj.damping_beta == 0.0
-        and obj.blocking is not None
-        and obj.blocking.s_dense is not None
-        # Inelasticity runs IN-KERNEL since round 5: the von-Mises return
-        # map / Maxwell relaxation are plane arithmetic, and the Maxwell
-        # branch adds a second material layer to the in-kernel prep
-        # (ops/pallas_blocked_frame.py).
-        and (
-            (obj.plastic_yield == 0.0 and obj.viscous_mu == 0.0)
-            or obj.blocking.element_slot is not None
-        )
-    )
-
-
-def supports_explicit_blocked_frame(obj: FemObject, cfg: SimConfig) -> bool:
-    """Eligibility for the explicit/autodiff whole-frame kernel
-    (ops/pallas_blocked_frame.fused_explicit_frame): the neo-Hookean
-    gradient chain with the fused VMEM tables built."""
-    return (
-        obj.dim in (2, 3)
-        and not cfg.adaptive_dt
-        and _circles_only(cfg)
-        and (cfg.use_explicit_method or cfg.auto_diff)
-        and cfg.element_backend in ("auto", "pallas")
-        and obj.free_mask is None
-        and obj.static_load is None
-        and obj.damping_beta == 0.0
-        and obj.blocking is not None
-        and obj.blocking.s_dense is not None
-        # Inelasticity runs IN-KERNEL (round 5, same scheme as the
-        # implicit whole-frame kernel).
-        and (
-            (obj.plastic_yield == 0.0 and obj.viscous_mu == 0.0)
-            or obj.blocking.element_slot is not None
-        )
-    )
-
-
-def make_explicit_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
-    """Explicit/autodiff frame as ONE device op (analytic gradient chain —
-    mathematically identical to the autodiff path; ulp-level association
-    differences only)."""
-    from fem_tpu.ops.pallas_blocked_frame import fused_explicit_frame
-
-    plastic = float(obj.plastic_yield)
-    visc_mu = float(obj.viscous_mu)
-
-    @jax.jit
-    def frame_impl(o: FemObject, state: SimState, obstacles: Obstacles):
-        out = fused_explicit_frame(
-            o.blocking, state.pos, state.vel, o.mass,
-            obstacles.centers, obstacles.radii,
-            dim=o.dim, dt=cfg.delta_time, damping=o.damping,
-            g_dir=tuple(cfg.g_dir), mu=o.mu, s_lambda=o.s_lambda,
-            sim_count=cfg.sim_count, material=o.material,
-            plastic_inv=state.plastic_inv if plastic > 0.0 else None,
-            plastic_yield=plastic,
-            viscous_inv=state.viscous_inv if visc_mu > 0.0 else None,
-            viscous_mu=visc_mu,
-            viscous_tau=float(obj.viscous_tau),
-        )
-        pos, vel = out[:2]
-        new_state = state.replace(
-            pos=pos, vel=vel, force=jnp.zeros_like(pos)
-        )
-        i = 2
-        if plastic > 0.0:
-            new_state = new_state.replace(plastic_inv=out[i])
-            i += 1
-        if visc_mu > 0.0:
-            new_state = new_state.replace(viscous_inv=out[i])
-        aux = StepAux(
-            jnp.zeros((cfg.sim_count,), jnp.int32),
-            jnp.zeros((cfg.sim_count,), jnp.float32),
-        )
-        return new_state, aux
-
-    def frame(state: SimState, obstacles: Obstacles):
-        return frame_impl(obj, state, obstacles)
-
-    return frame
-
-
-def make_blocked_frame_fn(obj: FemObject, cfg: SimConfig):
-    """Frame function backed by the whole-frame fused kernel — ONE device op
-    per rendered frame (ops/pallas_blocked_frame.py)."""
-    from fem_tpu.ops.pallas_blocked_frame import fused_blocked_frame
-
-    plastic = float(obj.plastic_yield)
-    visc_mu = float(obj.viscous_mu)
-
-    @jax.jit
-    def frame_impl(o: FemObject, state: SimState, obstacles: Obstacles):
-        out = fused_blocked_frame(
-            o.blocking, state.pos, state.vel, state.vel_g, o.mass,
-            obstacles.centers, obstacles.radii,
-            dim=o.dim, dt=cfg.delta_time, damping=o.damping,
-            g_dir=tuple(cfg.g_dir), mu=o.mu, s_lambda=o.s_lambda,
-            preconditioned=(
-                cfg.preconditioned == 1 and cfg.cg_precond == "reference"
-            ),
-            sim_count=cfg.sim_count,
-            robust=cfg.robust_inversion,
-            fast_math=cfg.cg_fast_math,
-            material=o.material,
-            plastic_inv=state.plastic_inv if plastic > 0.0 else None,
-            plastic_yield=plastic,
-            viscous_inv=state.viscous_inv if visc_mu > 0.0 else None,
-            viscous_mu=visc_mu,
-            viscous_tau=float(obj.viscous_tau),
-        )
-        pos, vel, velg, iters, res = out[:5]
-        new_state = state.replace(pos=pos, vel=vel, vel_g=velg)
-        i = 5
-        if plastic > 0.0:
-            new_state = new_state.replace(plastic_inv=out[i])
-            i += 1
-        if visc_mu > 0.0:
-            new_state = new_state.replace(viscous_inv=out[i])
-        return new_state, StepAux(iters, res)
-
-    def frame(state: SimState, obstacles: Obstacles):
-        return frame_impl(obj, state, obstacles)
-
-    return frame
+# Captured arrays become XLA constants, which the compiler folds into the
+# program: compile time grows with the mesh and the constants are embedded
+# in the executable instead of read as inputs.
 
 
 def make_frame_fn(obj: FemObject, cfg: SimConfig):
     """Compiled function advancing one rendered frame (= ``sim_count``
     substeps).  Returns (state, StepAux stacked over substeps).
 
-    Backend resolution (``frame_backend``):
-      * ``"auto"`` on TPU — the whole-frame BLOCKED kernels when eligible
-        (ops/pallas_blocked_frame.py: implicit-CG or explicit/autodiff as
-        ONE device op per frame over VMEM-resident block tables; the
-        fastest measured paths); otherwise the op-composed ``lax.scan``
-        frame.
-      * ``"blocked"`` / ``"blocked_explicit"`` — force those kernels
-        (ValueError if ineligible); used by CPU interpret-mode tests.
-      * ``"fused"`` — the earlier UNblocked whole-frame kernel
-        (experiments/pallas_frame.py): parity-exact but 4.8× slower (O(E·N)
-        one-hot gathers); kept as a documented alternative.
+    Every path is plain JAX under one ``jax.jit``: the frame's substeps run
+    as a ``lax.scan``; ``adaptive_dt`` wraps them in the per-frame κ-guard.
     """
-    if cfg.frame_backend == "fused":
-        from fem_tpu.experiments.pallas_frame import (
-            make_fused_frame_fn, supports_fused_frame,
-        )
-
-        if not supports_fused_frame(obj, cfg):
-            raise ValueError(
-                "frame_backend='fused' requested but this config/mesh "
-                "is not eligible (see experiments/pallas_frame.py)"
-            )
-        return make_fused_frame_fn(obj, cfg)
-    if not cfg.adaptive_dt and (
-        cfg.frame_backend == "blocked"
-        or (
-            cfg.frame_backend == "auto"
-            and jax.default_backend() == "tpu"
-            and supports_blocked_frame(obj, cfg)
-        )
-    ):
-        # Whole-frame kernel — fastest measured flagship path (3,763 vs
-        # 3,599 steps/s for op-composed + whole-solve kernel, 2,069 for
-        # op-composed + grid kernels) once the one-hot dots run as exact
-        # bf16 split-dots (ops/pallas_blocked_cg._dot).  adaptive_dt
-        # configs fall through to the guarded branch below, which itself
-        # composes with this kernel when eligible.
-        if cfg.frame_backend == "blocked" and not supports_blocked_frame(
-            obj, cfg
-        ):
-            raise ValueError(
-                "frame_backend='blocked' requested but this config/mesh "
-                "is not eligible (see ops/pallas_blocked_frame.py)"
-            )
-        return make_blocked_frame_fn(obj, cfg)
-    if cfg.frame_backend == "blocked_explicit" or (
-        cfg.frame_backend == "auto"
-        and jax.default_backend() == "tpu"
-        and supports_explicit_blocked_frame(obj, cfg)
-    ):
-        if (
-            cfg.frame_backend == "blocked_explicit"
-            and not supports_explicit_blocked_frame(obj, cfg)
-        ):
-            raise ValueError(
-                "frame_backend='blocked_explicit' requested but this "
-                "config/mesh is not eligible (see "
-                "ops/pallas_blocked_frame.py)"
-            )
-        return make_explicit_blocked_frame_fn(obj, cfg)
     kwargs = _cfg_kwargs(cfg)
     if cfg.adaptive_dt:
-        # FRAME-LEVEL guard (round 5): measure κ once per frame and run all
-        # sim_count substeps at the chosen split level.  The per-substep
-        # variant measured 8.3× overhead on demo_spot_real (4,500 → 541
-        # steps/s — the κ estimate's hessian_blocks chain costs more than
-        # the whole guarded substep), while κ itself evolves on the
-        # deformation timescale: the documented blow-ups build over
-        # hundreds of substeps (BASELINE.md), so one check per frame
+        # FRAME-LEVEL guard: measure κ once per frame and run all
+        # sim_count substeps at the chosen split level.  The κ estimate's
+        # element chain costs about as much as a guarded substep, while κ
+        # itself evolves on the deformation timescale: the documented
+        # blow-ups build over hundreds of substeps, so one check per frame
         # (≤ 10 substeps ≈ 5 ms of virtual time) loses no responsiveness.
         # make_substep_fn keeps the per-substep guard for fine-grained use.
         from fem_tpu.solvers.adaptive import (
@@ -502,30 +265,6 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
 
         base = dict(kwargs)
         dt = base.pop("dt")
-        # The guard composes with the whole-frame FUSED kernel (round 5):
-        # each switch branch is the fused kernel compiled at the static
-        # inner dt/n for sim_count·n substeps — the shipped demo_spot_real
-        # config (fused tables fit; only `adaptive_dt` kept it off this
-        # kernel) runs at fused speed under the guard.
-        import dataclasses as _dc
-
-        cfg_nodynamic = _dc.replace(cfg, adaptive_dt=False)
-        use_fused = supports_blocked_frame(obj, cfg_nodynamic) and (
-            cfg.frame_backend == "blocked"
-            or (
-                cfg.frame_backend == "auto"
-                and jax.default_backend() == "tpu"
-            )
-        )
-        if use_fused:
-            fused_frames = {}
-            for n in (1, 2, 4, 8):
-                cfg_n = _dc.replace(
-                    cfg_nodynamic,
-                    delta_time=cfg.delta_time / n,
-                    sim_count=cfg.sim_count * n,
-                )
-                fused_frames[n] = make_blocked_frame_fn(obj, cfg_n)
 
         @jax.jit
         def frame_impl(o: FemObject, state: SimState, obstacles: Obstacles):
@@ -535,21 +274,6 @@ def make_frame_fn(obj: FemObject, cfg: SimConfig):
             idx = split_level(kappa, cfg.adaptive_dt_threshold)
 
             def make_branch(n):
-                if use_fused:
-                    def branch(s0):
-                        s, aux = fused_frames[n](s0, obstacles)
-                        # (S·n,) per-substep aux → (S,) frame rows: total
-                        # iterations per outer substep, last inner residual.
-                        it = aux.solver_iterations.reshape(
-                            cfg.sim_count, n
-                        ).sum(axis=1)
-                        res = aux.solver_residual.reshape(
-                            cfg.sim_count, n
-                        )[:, -1]
-                        return s, StepAux(it, res)
-
-                    return branch
-
                 def branch(s0):
                     def body(s, _):
                         def inner(st, _):

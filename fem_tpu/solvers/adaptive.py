@@ -5,9 +5,9 @@ The reference integrates at a fixed config dt with no stability monitor (its
 only guard is the Hessian logJ clamp, /root/reference solver/implicit.py:131)
 — at scale that silently NaNs: the decoupled-Hessian integrator blows up when
 κ = dt²·‖K‖/m approaches 1 as element size shrinks or deep squash stiffens
-elements (measured: 68k tets at dt=5e-4 NaN ~0.2 s after impact; the
-reference's own spot.obj at its default dt=5e-4 NaNs at t≈5 virtual s —
-BASELINE.md).  ``adaptive_dt=true`` monitors exactly that indicator each
+elements (68k tets at dt=5e-4 NaN ~0.2 s of simulated time after impact;
+the reference's own spot.obj at its default dt=5e-4 NaNs at t≈5 simulated
+s).  ``adaptive_dt=true`` monitors exactly that indicator each
 substep and, when it crosses threshold, splits the substep into 2/4/8
 state-consistent inner steps at dt/n (κ ∝ dt², so halving dt quarters κ).
 Off by default: guarded trajectories deviate from fixed-dt parity the moment
@@ -37,29 +37,15 @@ def kappa_estimate(
     """The stability indicator κ = max_i dt²·‖(diag K)_i‖_F / m_i — the
     Frobenius size of the largest assembled diagonal block of dt²·M⁻¹K,
     i.e. ‖A_ii − I‖_F of the implicit system.  κ ≪ 1: the fixed-dt regime
-    is comfortable; κ → 1: the integrator is at the measured blow-up edge
-    (BASELINE.md 68k/212k rows).  One element chain + one O(E) assembly —
+    is comfortable; κ → 1: the integrator is at its blow-up edge.  One
+    element chain + one O(E) assembly —
     about the cost of a single operator apply."""
-    blk = getattr(obj, "blocking", None)
-    if blk is not None and axis_name is None:
-        # In-VMEM blocked prep for the K blocks (round 5): the XLA
-        # hessian_blocks chain + gather cost ~1.4 ms/frame on the 7.7k-tet
-        # demo_spot_real — more than half the guarded frame's total.
-        from fem_tpu.ops.blocking import blocked_prep, kplane_to_kflat
-
-        kplane, _ = blocked_prep(
-            blk, pos, obj.dim, obj.mu, obj.s_lambda, robust, obj.material
-        )
-        K = kplane_to_kflat(blk, kplane, obj.dim)
-        idx = blk.element_indices
-    else:
-        K = hessian_blocks(
-            pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
-            obj.s_lambda, robust, obj.material,
-        )
-        idx = obj.element_indices
+    K = hessian_blocks(
+        pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda, robust, obj.material,
+    )
     diag_a = diagonal_blocks_from(
-        idx, K, obj.mass, dt, obj.particle_cnt, axis_name
+        obj.element_indices, K, obj.mass, dt, obj.particle_cnt, axis_name
     )
     dev = diag_a - jnp.eye(obj.dim, dtype=diag_a.dtype)[None]
     return jnp.sqrt(jnp.max(jnp.sum(dev * dev, axis=(1, 2))))

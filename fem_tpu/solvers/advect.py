@@ -72,7 +72,6 @@ def kinematic_step(
     dt: float,
     damping: float,
     g_dir: Tuple[float, ...],
-    backend: str = "xla",
     free_mask: jnp.ndarray | None = None,
     pin_vel: jnp.ndarray | None = None,
     wall_friction: float = 0.0,
@@ -81,41 +80,13 @@ def kinematic_step(
 
     ``grad`` is the assembled energy gradient (the reference's
     ``particles.force`` / ``pos.grad``), subtracted as −grad/m.
-    ``backend="pallas"`` runs the whole stage as one fused kernel
-    (ops/pallas_advect.py).  ``free_mask`` (N, 1) zeroes pinned vertices'
+    ``free_mask`` (N, 1) zeroes pinned vertices'
     velocity before the position update (Dirichlet extension); ``pin_vel``
     (N, d) overrides pinned vertices with a prescribed velocity instead
     (kinematic loading — bypasses damping/walls/obstacles by construction).
     """
     from fem_tpu.obstacles import apply_extensions_explicit, has_extensions
 
-    if backend == "pallas":
-        import jax
-
-        from fem_tpu.ops.pallas_advect import kinematic_pallas
-
-        if has_extensions(obstacles) or wall_friction > 0.0:
-            raise ValueError(
-                "SDF obstacle extensions / wall friction require the XLA "
-                "advection path (backend='xla'); the fused Pallas advection "
-                "kernel implements reference circles only"
-            )
-        pos, vel = kinematic_pallas(
-            state.pos, state.vel, grad, (1.0 / mass)[:, None],
-            obstacles.centers, obstacles.radii[None, :],
-            dt=dt, damping=damping, g_dir=tuple(g_dir),
-            interpret=jax.default_backend() != "tpu",
-        )
-        if free_mask is not None:
-            vel = vel * free_mask
-            if pin_vel is not None:
-                vel = vel + pin_vel
-                pos = jnp.where(
-                    free_mask > 0.0, pos, state.pos + pin_vel * dt
-                )
-            else:
-                pos = jnp.where(free_mask > 0.0, pos, state.pos)
-        return state.replace(pos=pos, vel=vel, force=jnp.zeros_like(grad))
     g = 9.8 * jnp.asarray(g_dir, jnp.float32)
     vel = state.vel + (g[None, :] - grad / mass[:, None]) * dt
     vel = vel * jnp.exp(-dt * damping)
@@ -145,7 +116,6 @@ def advect_implicit_step(
     dt: float,
     damping: float,
     g_dir: Tuple[float, ...],
-    backend: str = "xla",
     free_mask: jnp.ndarray | None = None,
     pin_vel: jnp.ndarray | None = None,
     wall_friction: float = 0.0,
@@ -168,39 +138,6 @@ def advect_implicit_step(
     reference's pos += v·dt exactly."""
     from fem_tpu.obstacles import apply_extensions_implicit, has_extensions
 
-    if backend == "pallas":
-        import jax
-
-        from fem_tpu.ops.pallas_advect import advect_implicit_pallas
-
-        if theta != 1.0:
-            raise ValueError(
-                "the θ-scheme (newton_theta != 1) requires the XLA "
-                "advection path (backend='xla')"
-            )
-        if has_extensions(obstacles) or wall_friction > 0.0:
-            raise ValueError(
-                "SDF obstacle extensions / wall friction require the XLA "
-                "advection path (backend='xla'); the fused Pallas advection "
-                "kernel implements reference circles only"
-            )
-        pos, vel, vel_g = advect_implicit_pallas(
-            state.pos, state.vel, state.vel_g,
-            obstacles.centers, obstacles.radii[None, :],
-            dt=dt, damping=damping, g_dir=tuple(g_dir),
-            interpret=jax.default_backend() != "tpu",
-        )
-        if free_mask is not None:
-            vel = vel * free_mask
-            vel_g = vel_g * free_mask
-            if pin_vel is not None:
-                vel = vel + pin_vel
-                pos = jnp.where(
-                    free_mask > 0.0, pos, state.pos + pin_vel * dt
-                )
-            else:
-                pos = jnp.where(free_mask > 0.0, pos, state.pos)
-        return state.replace(pos=pos, vel=vel, vel_g=vel_g)
     g = 9.8 * jnp.asarray(g_dir, jnp.float32)
     vel_g = state.vel_g + g[None, :] * dt
     decay = jnp.exp(-dt * damping)

@@ -1,24 +1,25 @@
 # coding=utf-8
-"""Dense MXU backend for the implicit solve (small/medium meshes).
+"""Dense backend for the implicit solve (small/medium meshes).
 
 The matrix-free operator (solvers/implicit.py) is O(E) per application but is
-built from gathers, small einsums and segment sums — on TPU each application
-costs several kernel dispatches and irregular memory traffic.  For meshes
-whose dense system fits on-chip (N·d ≲ a few thousand), the faster TPU design
-is to *materialize* A = I − dt²M⁻¹G(K) once per substep with one scatter, and
-run every CG iteration as a single dense (N·d, N·d) matvec on the MXU —
-turning the latency-bound iteration into one fused matmul.
+built from gathers, small einsums and segment sums — each application costs
+several kernel launches and irregular memory traffic.  For meshes whose dense
+system fits in device memory (N·d ≲ a few thousand), the alternative is to
+*materialize* A = I − dt²M⁻¹G(K) once per substep with one scatter, and run
+every CG iteration as a single dense (N·d, N·d) matvec — turning the
+latency-bound iteration into one matrix-vector product.
 
 This is still the reference's exact operator (same K blocks, same scatter
 pattern as solver/implicit.py:114-194) — only the execution strategy differs.
-The normal-equations mode materializes AᵀA once (one MXU matmul), after which
+The normal-equations mode materializes AᵀA once (one matrix product), after which
 each reference-CG iteration is a single matvec instead of the matrix-free
 double apply.
 
 Backend selection: dense is explicit opt-in via ``solver_backend="dense"``
-(measured: at the reference's absolute CG tolerance the solve converges in a
-handful of iterations, and the O(E) matrix-free operator wins at every mesh
-size tried, so "auto" resolves to matrix-free — see fem_tpu/sim.py).
+(fem_tpu/strategy.uses_dense_solver): at the reference's absolute CG
+tolerance the solve converges in a handful of iterations, so the O(E)
+matrix-free operator is the default.  Which side wins on the GPU at which
+size has not been measured.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def implicit_velocity_solve_dense(
 ) -> Tuple[SimState, ImplicitAux]:
     """Dense-backend counterpart of
     :func:`fem_tpu.solvers.implicit.implicit_velocity_solve` — identical
-    solver semantics, MXU execution."""
+    solver semantics, dense execution."""
     n, d = obj.particle_cnt, obj.dim
     K = hessian_blocks(
         state.pos, obj.element_indices, obj.ref_inv, obj.volume,

@@ -6,7 +6,7 @@ Reference:
     scatter) — here a batched element kernel + segment-sum assembly;
   * autodiff path:  solver/explicit_auto_diff.py + ``ti.ad.Tape`` at
     main.py:107 — here literally ``jax.grad`` of the total energy, which is
-    the TPU-native replacement for the Taichi tape.
+    the JAX replacement for the Taichi tape.
 """
 
 from __future__ import annotations
@@ -23,80 +23,25 @@ def analytic_energy_gradient(
     obj: FemObject,
     pos: jnp.ndarray,
     axis_name: str | None = None,
-    element_backend: str = "xla",
     layers=None,
 ) -> jnp.ndarray:
     """Assembled ∂U/∂x via the reference's analytic per-element formula
     (solver/explicit.py:23-49).  With ``axis_name``, element arrays are local
-    shards and the assembly is psum-reduced.  ``element_backend="pallas"``
-    runs the fused VMEM kernel (ops/pallas_kernels.py) for the column math.
+    shards and the assembly is psum-reduced.
 
     ``layers`` (ops/inelastic.material_layers) sums the gradient over
     material layers with dynamic effective rest-edge inverses — the
-    inelastic extension on the SAME execution ladder (None = the single
-    elastic layer, the historical code path)."""
+    inelastic extension on the same path (None = the single elastic layer,
+    the historical code path)."""
+    from fem_tpu.ops.inelastic import layer_ref_inv_local
     from fem_tpu.solvers.implicit import _normalize_layers
 
-    if element_backend == "auto":
-        element_backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    lys = _normalize_layers(obj, layers)
-    if axis_name is None and obj.blocking is not None:
-        # Blocked assembly (ops/blocking.py): the per-(element, vertex)-row
-        # scatter is the tiny-row access XLA moves at ~1.7 GB/s on TPU; the
-        # blocked scatter does it as one MXU dot per locality block + a
-        # B·Pb-row segment-sum.  Columns are computed on the block-ordered
-        # padded element copies, so results are identical up to summation
-        # order (tested vs the gather path in tests/test_blocked.py).
-        from fem_tpu.ops.blocking import blocked_assemble
-        from fem_tpu.ops.inelastic import layer_ref_inv_blocked
-
-        blk = obj.blocking
-        if element_backend == "pallas":
-            # Blocked in-VMEM prep (ops/blocking.blocked_grad_prep): edge
-            # matrices from S_b·x_b MXU dots instead of the E·(d+1)-row XLA
-            # gather, gradient partials emitted per block.
-            from fem_tpu.ops.blocking import (
-                blocked_grad_prep, blocked_scatter_sum,
-            )
-
-            from fem_tpu.ops.inelastic import layer_ref_planes_blocked
-
-            yt = None
-            for fi_inv, mu, lam, material in lys:
-                rp = layer_ref_planes_blocked(blk, fi_inv, obj.dim)
-                yt_l = blocked_grad_prep(
-                    blk, pos, obj.dim, mu, lam, material, ref_planes=rp
-                )
-                yt = yt_l if yt is None else yt + yt_l
-            return blocked_scatter_sum(yt, blk, obj.particle_cnt)
-        cols = None
-        for fi_inv, mu, lam, material in lys:
-            c_l = explicit_grad_columns(
-                pos, blk.element_indices,
-                layer_ref_inv_blocked(blk, fi_inv), blk.volume,
-                mu, lam, material,
-            )
-            cols = c_l if cols is None else cols + c_l
-        return blocked_assemble(blk, cols, obj.particle_cnt, obj.dim)
-    from fem_tpu.ops.inelastic import layer_ref_inv_local
-
     cols = None
-    for fi_inv, mu, lam, material in lys:
+    for fi_inv, mu, lam, material in _normalize_layers(obj, layers):
         r_eff = layer_ref_inv_local(obj.ref_inv, fi_inv, axis_name)
-        if element_backend == "pallas":
-            from fem_tpu.ops.pallas_kernels import (
-                explicit_grad_columns_pallas,
-            )
-
-            c_l = explicit_grad_columns_pallas(
-                pos, obj.element_indices, r_eff, obj.volume, mu, lam,
-                material,
-            )
-        else:
-            c_l = explicit_grad_columns(
-                pos, obj.element_indices, r_eff, obj.volume, mu, lam,
-                material,
-            )
+        c_l = explicit_grad_columns(
+            pos, obj.element_indices, r_eff, obj.volume, mu, lam, material,
+        )
         cols = c_l if cols is None else cols + c_l
     return assemble_for(obj, element_contrib_full(cols), axis_name)
 
@@ -107,30 +52,6 @@ def autodiff_energy_gradient(
     """∂U/∂x via reverse-mode AD — the exact contract of the reference's
     ``particles.pos.grad`` after the Taichi tape exits (main.py:107-110,
     consumed at solver/kinematic.py:16)."""
-    if axis_name is None and obj.blocking is not None:
-        # Split the chain at the edge matrices: U = Σ V·φ(X·R⁻¹) with
-        # X = (p_{j+1} − p_0) columns, so ∂U/∂p scatters ∂U/∂X columns in
-        # exactly the S pattern (column j → vertex j+1, −Σ → vertex 0) —
-        # assemble with the blocked MXU scatter instead of the tiny-row
-        # scatter-add jax.grad would emit for the position gather.
-        from fem_tpu.ops.assembly import gather_edge_diffs
-        from fem_tpu.ops.blocking import blocked_assemble
-        from fem_tpu.ops.element import energy_density
-        from fem_tpu.ops import smallmat as sm
-
-        blk = obj.blocking
-
-        def energy_from_x(x_mat):
-            f = sm.matmul(x_mat, blk.ref_inv)
-            return jnp.sum(
-                blk.volume
-                * energy_density(f, obj.mu, obj.s_lambda, obj.material)
-            )
-
-        x_mat = gather_edge_diffs(pos, blk.element_indices)
-        g_cols = jax.grad(energy_from_x)(x_mat)  # (B·Eb, d, d) = ∂U/∂X
-        return blocked_assemble(blk, g_cols, obj.particle_cnt, obj.dim)
-
     def energy(p):
         u = total_energy(
             p, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,

@@ -17,7 +17,7 @@ modal basis from solvers/modal.py —
         q̂ᵢ(ω) = φᵢᵀF̂ / (ωᵢ² − ω² + i·ω·cᵢ),     cᵢ = α + β·ωᵢ²,
 
     so a full frequency sweep costs one (nf × k) complex divide plus one
-    matmul back to physical space — MXU work, no per-frequency solves.
+    matrix product back to physical space — no per-frequency solves.
 
   * :func:`modal_transient` — time integration of the same reduced system
     with the EXACT one-step propagator: per mode the 2×2 companion
@@ -110,7 +110,10 @@ def harmonic_response(
     w = 2.0 * jnp.pi * jnp.asarray(freqs_hz, omega_sq.dtype)  # (nf,)
     c = _modal_damping(omega_sq, alpha, beta, zeta)  # (k,)
     # Modal participation of the load: pᵢ = φᵢᵀ F̂.
-    p = jnp.einsum("knd,nd->k", modes, jnp.asarray(f_hat))
+    p = jnp.einsum(
+        "knd,nd->k", modes, jnp.asarray(f_hat),
+        precision=jax.lax.Precision.HIGHEST,
+    )
     denom = (
         (omega_sq[None, :] - (w**2)[:, None]).astype(jnp.complex64)
         + 1j * (w[:, None] * c[None, :]).astype(jnp.complex64)
@@ -118,7 +121,10 @@ def harmonic_response(
     coeffs = p[None, :].astype(jnp.complex64) / denom  # (nf, k)
     amplitude = phase = None
     if fields:
-        x_hat = jnp.einsum("fk,knd->fnd", coeffs, modes.astype(jnp.complex64))
+        x_hat = jnp.einsum(
+            "fk,knd->fnd", coeffs, modes.astype(jnp.complex64),
+            precision=jax.lax.Precision.HIGHEST,
+        )
         amplitude = jnp.abs(x_hat)
         phase = jnp.angle(x_hat)
     return HarmonicResult(
@@ -131,7 +137,10 @@ def reconstruct_field(modal: ModalResult, coeffs: jnp.ndarray) -> jnp.ndarray:
     """Physical (complex) displacement field(s) from modal coordinates:
     coeffs (..., k) → (..., N, d)."""
     modes = jnp.asarray(modal.modes).astype(jnp.complex64)
-    return jnp.einsum("...k,knd->...nd", jnp.asarray(coeffs), modes)
+    return jnp.einsum(
+        "...k,knd->...nd", jnp.asarray(coeffs), modes,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 class ModalTransientResult(NamedTuple):
@@ -201,7 +210,10 @@ def modal_transient(
     if f_const is not None and force is not None:
         raise ValueError("pass force= or f_const=, not both")
     p_const = (
-        jnp.einsum("knd,nd->k", modes, jnp.asarray(f_const))
+        jnp.einsum(
+            "knd,nd->k", modes, jnp.asarray(f_const),
+            precision=jax.lax.Precision.HIGHEST,
+        )
         if f_const is not None
         else jnp.zeros((k,), omega_sq.dtype)
     )
@@ -210,9 +222,14 @@ def modal_transient(
         q, qd = carry
         p = p_const
         if force is not None:
-            p = p + jnp.einsum("knd,nd->k", modes, force(t))
+            p = p + jnp.einsum(
+                "knd,nd->k", modes, force(t),
+                precision=jax.lax.Precision.HIGHEST,
+            )
         y = jnp.stack([q, qd], axis=-1)  # (k, 2)
-        y_new = jnp.einsum("kij,kj->ki", e_mat, y) + s_vec * p[:, None]
+        y_new = jnp.einsum(
+            "kij,kj->ki", e_mat, y, precision=jax.lax.Precision.HIGHEST
+        ) + s_vec * p[:, None]
         return (y_new[:, 0], y_new[:, 1]), (y_new[:, 0], y_new[:, 1])
 
     ts = jnp.arange(steps, dtype=omega_sq.dtype) * dt
@@ -232,7 +249,10 @@ def project_field(
     modes make this the exact L²(M) projection).  ``mass``: (N,) lumped
     masses; ``field``: (N, d)."""
     modes = jnp.asarray(modal.modes)
-    return jnp.einsum("knd,nd->k", modes, mass[:, None] * jnp.asarray(field))
+    return jnp.einsum(
+        "knd,nd->k", modes, mass[:, None] * jnp.asarray(field),
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 class ParticipationResult(NamedTuple):
@@ -263,7 +283,9 @@ def participation_factors(
     e = jnp.asarray(direction, modes.dtype)
     e = e / jnp.linalg.norm(e)
     field = mass[:, None] * e[None, :]  # (N, d)
-    gam = jnp.einsum("knd,nd->k", modes, field)
+    gam = jnp.einsum(
+        "knd,nd->k", modes, field, precision=jax.lax.Precision.HIGHEST
+    )
     eff = gam * gam
     total = jnp.sum(mass)
     return ParticipationResult(

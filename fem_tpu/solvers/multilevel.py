@@ -2,14 +2,14 @@
 """Two-level (coarse-space) preconditioner for the implicit operator.
 
 Framework extension (``cg_precond="two_level"``) — the real preconditioner
-BASELINE.md's round-4 Newton analysis calls for.  The implicit system
+the Newton integrator's large-dt regime calls for.  The implicit system
 A = I − c·M⁻¹·G(K) (c = dt·(dt+β)) has the mass-symmetrized spectrum
 [1, 1 + c·λmax/m]: its condition number grows like dt², so the Newton
 integrator's large-dt selling point costs O(dt) inner CG iterations
 (measured: 18-24 iters/substep at spot_real's stable dt, ~100 at the 68k
 stability boundary).  Diagonal preconditioning cannot fix this (no
 asymptotic cond gain for Laplacian-like operators — and at κ ≈ 1 it
-measurably diverges, BASELINE.md); what does is the classic two-level
+measurably diverges); what does is the classic two-level
 decomposition, measured on this operator's spectrum (round-5 probe):
 
 * the TOP of the spectrum (element-scale stiff modes) is local →
@@ -32,8 +32,8 @@ Two cycles, both on the mass-symmetrized operator Ã = M^{1/2}AM^{-1/2}:
   advantage GROWS with dt (plain CG stops converging at all).  Needs
   ω·λmax(D⁻¹Ã) < 2 for SPD-ness; λmax is power-iterated at setup with a
   0.7 safety margin — an UNDER-estimated λmax over-relaxes the smoother,
-  turns M indefinite, and stalls the outer Newton line search (the
-  recorded TPU static-slab failure).
+  turns M indefinite, and stalls the outer Newton line search (a
+  recorded static-slab failure).
 
 * smoother ``"chebyshev"`` (``cg_precond="two_level_cheb<k>"``) — the
   degree-k Chebyshev polynomial sweep replaces the single damped-Jacobi
@@ -67,7 +67,7 @@ accepted solution contract never changes).
 Intended regimes: large-dt backward Euler (Newton inner solves) and
 quasi-static/heterogeneous systems.  At the κ ≈ 1 stability boundary the
 system is near-indefinite and NO symmetrized-PCG process survives
-(measured three ways, BASELINE.md) — that documented DON'T applies here
+(measured three ways) — that documented DON'T applies here
 too.
 """
 
@@ -248,9 +248,9 @@ def coarse_matrix(
     basis = coarse.basis
     if free_mask is not None:
         basis = basis * free_mask[..., None]
-    # K may live on a different element ordering than obj.element_indices
-    # (the blocked operator computes K on the block-ordered padded copies;
-    # padded slots carry K = 0 so they contribute nothing).
+    # K may live on a different element array than obj.element_indices
+    # (zero-volume padded elements carry K = 0 so they contribute
+    # nothing).
     idx = (
         obj.element_indices if element_indices is None else element_indices
     )  # (E, d+1)
@@ -386,7 +386,7 @@ def estimate_lam_max(
     is element-scale oscillatory and a smooth start (all-ones) overlaps it
     only through roundoff — 16 iterations from it land within a few % on
     this operator family.  Estimate on the SAME operator the cycle uses
-    (the recorded TPU static-slab stall: a ~30% λmax miss from a softer
+    (a recorded static-slab stall: a ~30% λmax miss from a softer
     surrogate operator over-relaxed the smoother and turned M indefinite)."""
     n = shape_like.size
     rough = jnp.sin(
@@ -464,7 +464,7 @@ def two_level_setup(
     # SPD guard ladder: under compression/near-buckling the decoupled
     # blocks go indefinite and C inherits it — an unguarded Cholesky then
     # NaNs, and a NaN preconditioner silently skips every elastic solve
-    # (the measured κ≈1 block-Jacobi failure mode, BASELINE.md).
+    # (the measured κ≈1 block-Jacobi failure mode).
     #   1. plain factor (healthy regimes: bit-identical, Gershgorin would
     #      over-shift a coarse Laplacian's non-dominant rotation rows);
     #   2. Gershgorin-shifted factor (certified SPD, conservative);

@@ -6,10 +6,10 @@ implicit method performs ONE linearized solve per substep — backward Euler
 linearized at the beginning-of-step positions (semi-implicit;
 /root/reference/solver/implicit.py:201-223) — which is why it blows up when
 κ = dt²·‖K‖/m approaches 1: the linearization error of the single solve, not
-the linear algebra, is what diverges (measured: 68k tets NaN at the
-config-default dt=5e-4, the reference's own spot.obj at t≈5 s, 212k at
-dt=1.5e-4 — BASELINE.md; neither robust inversion nor an exact single-solve
-Hessian rescues it, both probed).  This solver closes the nonlinear residual
+the linear algebra, is what diverges (68k tets NaN at the config-default
+dt=5e-4, the reference's own spot.obj at t≈5 s, 212k at dt=1.5e-4; neither
+robust inversion nor an exact single-solve Hessian rescues it, both
+probed).  This solver closes the nonlinear residual
 instead:
 
     r(v) = (v − v_n) − dt·M⁻¹·f_el(x_n + dt·v)  =  0
@@ -23,7 +23,7 @@ far the elastic force is trusted — the surrounding substep anatomy is
 unchanged and external forces / Neumann loads / contact fold in through the
 same rhs velocity substitution as the semi-implicit path.
 
-TPU-native design: one jitted ``lax.while_loop`` over damped Newton steps —
+Design: one jitted ``lax.while_loop`` over damped Newton steps —
 each step solves J·δ = −r matrix-free by CG and backtracks on the residual
 norm (sequentially: the full step is accepted on the first trial away from
 the stability boundary, so the common-case cost is one extra force
@@ -42,16 +42,15 @@ Two Jacobians (``SimConfig.newton_hessian``):
   force/HVP rides the XLA gather/segment-sum graph chain.
 * ``"decoupled"`` — modified Newton on the reference's own decoupled
   one-block-per-element linearization: each Newton step IS one
-  semi-implicit-shaped solve (blocked in-VMEM prep + blocked MXU operator
-  where the mesh has a Blocking — the full round-2/3 execution ladder), and
-  ONE prep yields both the residual force and the operator tables.
+  semi-implicit-shaped solve on the graph operator, and ONE element pass
+  yields both the residual force and the operator's K blocks.
   Convergence drops to superlinear-at-best, but each iteration runs at
   semi-implicit speed — the fast path at scale.
 
 Cost model: at reference-stable dt the first Newton step already satisfies
 the tolerance most substeps, so the overhead is ~one extra force
 evaluation; the win is that dt is no longer capped by the mesh size
-(dt ~ h removed — BASELINE.md round-4 rows).
+(dt ~ h removed).
 """
 
 from __future__ import annotations
@@ -65,116 +64,39 @@ from fem_tpu.models.state import FemObject, SimState
 from fem_tpu.ops.assembly import assemble_for, element_contrib_full
 from fem_tpu.solvers.implicit import (
     ImplicitAux,
-    _k_and_force_cols,
     _material_force_columns,
     conjugate_gradient,
     diagonal_blocks_from,
-    make_blocked_system_apply,
     make_system_apply,
     preconditioned_conjugate_gradient,
 )
 
 
-def _resolve_backend(element_backend: str) -> str:
-    if element_backend == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
-    return element_backend
-
-
 def _decoupled_prep(
-    obj: FemObject, pos: jnp.ndarray, axis_name, element_backend: str,
-    robust: bool = False, layers=None,
+    obj: FemObject, pos: jnp.ndarray, axis_name, robust: bool = False,
+    layers=None,
 ):
-    """(assembled elastic force f, K representation) at ``pos`` on the best
-    available execution path.  The K representation is whatever
-    :func:`_decoupled_apply` for the same (obj, backend) consumes — kplane
-    (B, d², R) from the in-VMEM blocked prep, block-ordered k_flat, or
-    element-ordered k_flat for the graph operator.  ``layers``
-    (ops/inelastic.material_layers) sums force and K over material layers
-    at the frozen internal variables."""
-    from fem_tpu.solvers.implicit import (
-        _k_and_force_cols_layers, _normalize_layers,
-    )
+    """(assembled elastic force f, element K blocks) at ``pos`` — one element
+    pass yields both.  ``layers`` (ops/inelastic.material_layers) sums force
+    and K over material layers at the frozen internal variables."""
+    from fem_tpu.solvers.implicit import _k_and_force_cols_layers
 
-    blk = obj.blocking
-    if blk is not None and element_backend == "pallas":
-        from fem_tpu.ops.blocking import blocked_prep, blocked_scatter_sum
-        from fem_tpu.ops.inelastic import layer_ref_planes_blocked
-
-        kplane = yt = None
-        for fi_inv, mu, lam, material in _normalize_layers(obj, layers):
-            rp = layer_ref_planes_blocked(blk, fi_inv, obj.dim)
-            kp_l, yt_l = blocked_prep(
-                blk, pos, obj.dim, mu, lam, robust, material,
-                ref_planes=rp,
-            )
-            kplane = kp_l if kplane is None else kplane + kp_l
-            yt = yt_l if yt is None else yt + yt_l
-        f = blocked_scatter_sum(yt, blk, obj.particle_cnt, axis_name)
-        return f, kplane
-    if blk is not None:
-        from fem_tpu.ops.blocking import blocked_assemble
-
-        k_flat, cols = _k_and_force_cols_layers(
-            obj, pos, blk.element_indices, blk.ref_inv, blk.volume,
-            robust, "xla", layers, blk=blk,
-        )
-        f = blocked_assemble(blk, cols, obj.particle_cnt, obj.dim, axis_name)
-        return f, k_flat
     k_flat, cols = _k_and_force_cols_layers(
         obj, pos, obj.element_indices, obj.ref_inv, obj.volume, robust,
-        element_backend, layers, axis_name=axis_name,
+        layers, axis_name=axis_name,
     )
     f = assemble_for(obj, element_contrib_full(cols), axis_name)
     return f, k_flat
 
 
-def _decoupled_apply(
-    obj: FemObject, krep: jnp.ndarray, dt: float, axis_name,
-    element_backend: str, beta: float = 0.0,
-):
-    """Operator w ↦ w − dt·(dt+β)·M⁻¹·(∂f/∂x)|_dec·w from a stored K
-    representation (same arithmetic as the semi-implicit solve's A — the
-    decoupled Jacobian evaluated at the Newton iterate's positions; β is
-    the Rayleigh-damping extension, solvers/implicit.system_coeff)."""
-    blk = obj.blocking
-    if blk is not None and element_backend == "pallas":
-        return make_blocked_system_apply(
-            obj, None, dt, axis_name, kplane=krep, beta=beta
-        )[0]
-    if blk is not None:
-        return make_blocked_system_apply(
-            obj, krep, dt, axis_name, beta=beta
-        )[0]
-    return make_system_apply(obj, krep, dt, axis_name, beta)
-
-
-def _decoupled_minv_gk(
-    obj: FemObject, krep: jnp.ndarray, axis_name, element_backend: str,
-):
-    """w ↦ M⁻¹·G(K)·w from a stored K representation — the raw decoupled
+def _decoupled_minv_gk(obj: FemObject, k_flat: jnp.ndarray, axis_name):
+    """w ↦ M⁻¹·G(K)·w from stored K blocks — the raw decoupled
     force-Jacobian product (used for the Rayleigh damping force in the
     Newton residual)."""
-    blk = obj.blocking
-    n, d = obj.particle_cnt, obj.dim
+    from fem_tpu.solvers.implicit import graph_block_apply
 
     def apply_gk(w: jnp.ndarray) -> jnp.ndarray:
-        if blk is not None:
-            from fem_tpu.ops.blocking import blocked_graph_apply, make_kplane
-
-            kplane = (
-                krep
-                if element_backend == "pallas"
-                else make_kplane(blk, krep, d)
-            )
-            gw = blocked_graph_apply(
-                blk, kplane, w, n, d, transpose_k=False, axis_name=axis_name
-            )
-        else:
-            from fem_tpu.solvers.implicit import graph_block_apply
-
-            gw = graph_block_apply(obj, krep, w, axis_name)
-        return gw / obj.mass[:, None]
+        return graph_block_apply(obj, k_flat, w, axis_name) / obj.mass[:, None]
 
     return apply_gk
 
@@ -189,7 +111,6 @@ def newton_velocity_solve(
     tol: float = 1e-5,
     n_backtrack: int = 10,
     hessian_mode: str = "exact",
-    element_backend: str = "auto",
     cg_precond: str = "none",
     robust: bool = False,
     beta: float = 0.0,
@@ -212,7 +133,7 @@ def newton_velocity_solve(
     solves — decoupled mode only (the diagonal blocks fall out of the prep
     tables; the exact-HVP mode assembles no diagonal).  The lever for the
     ill-conditioned large-dt regimes where plain CG needs ~100
-    iterations/substep (BASELINE.md round-4 newton rows).
+    iterations/substep.
 
     ``beta`` (Rayleigh damping extension, ObjectConfig.damping_beta) adds
     the damping force β·G(K(x))·v to the residual —
@@ -260,7 +181,6 @@ def newton_velocity_solve(
             "cg_precond='two_level' needs the coarse space attached at "
             "build time (models/state.build_object)"
         )
-    element_backend = _resolve_backend(element_backend)
     # θ-scheme: every Jacobian coefficient dt·(dt+β) becomes dt·(θ²·dt+β),
     # which is dt·(dt+β_eff) with β_eff = β − (1−θ²)·dt — exactly β at θ=1.
     beta_eff = beta - (1.0 - theta * theta) * dt
@@ -294,12 +214,10 @@ def newton_velocity_solve(
         else:
             pos = x_n + (theta * dt) * ((1.0 - theta) * v_n_pos + theta * v)
         if decoupled:
-            f, krep = _decoupled_prep(
-                obj, pos, axis_name, element_backend, robust, layers
-            )
+            f, krep = _decoupled_prep(obj, pos, axis_name, robust, layers)
             r = (v - v_n) - dt * inv_m * f
             if beta != 0.0:
-                gk = _decoupled_minv_gk(obj, krep, axis_name, element_backend)
+                gk = _decoupled_minv_gk(obj, krep, axis_name)
                 r = r - dt * beta * gk(v)
         else:
             f, krep = force_exact(pos), jnp.zeros((0,), jnp.float32)
@@ -309,23 +227,12 @@ def newton_velocity_solve(
             r = (v - v_n) - dt * inv_m * f
         return project(r), krep
 
-    def _kflat_and_idx(krep: jnp.ndarray):
-        blk = obj.blocking
-        if blk is not None and element_backend == "pallas":
-            from fem_tpu.ops.blocking import kplane_to_kflat
-
-            k_flat = kplane_to_kflat(blk, krep, obj.dim)
-        else:
-            k_flat = krep
-        idx = blk.element_indices if blk is not None else obj.element_indices
-        return k_flat, idx
-
     def _diag_from_krep(krep: jnp.ndarray) -> jnp.ndarray:
         """Per-particle diagonal blocks of the decoupled Jacobian from the
-        stored K representation (block-Jacobi PCG inner solves)."""
-        k_flat, idx = _kflat_and_idx(krep)
+        stored K blocks (block-Jacobi PCG inner solves)."""
         return diagonal_blocks_from(
-            idx, k_flat, obj.mass, dt, obj.particle_cnt, axis_name, beta_eff
+            obj.element_indices, krep, obj.mass, dt, obj.particle_cnt,
+            axis_name, beta_eff,
         )
 
     def res_norm(r: jnp.ndarray) -> jnp.ndarray:
@@ -346,9 +253,7 @@ def newton_velocity_solve(
         v, r, krep, _, it, cg_total, fails = carry
 
         if decoupled:
-            base_op = _decoupled_apply(
-                obj, krep, dt, axis_name, element_backend, beta_eff
-            )
+            base_op = make_system_apply(obj, krep, dt, axis_name, beta_eff)
         else:
             if theta == 1.0:
                 x_i = x_n + dt * v
@@ -443,8 +348,8 @@ def newton_velocity_solve(
     if use_two_level:
         # Build the two-level preconditioner ONCE per substep from the
         # initial iterate's decoupled blocks (one coarse assembly + one
-        # Cholesky, hoisted out of the Newton loop — the per-iterate
-        # rebuild measured 10× the whole plain solve's wall time on TPU).
+        # Cholesky, hoisted out of the Newton loop — rebuilding it per
+        # iterate would cost more than the whole plain solve).
         from fem_tpu.solvers.multilevel import (
             coarse_matrix, make_coarse_space, two_level_setup,
         )
@@ -454,14 +359,12 @@ def newton_velocity_solve(
             eye0 = jnp.eye(obj.dim, dtype=diag0.dtype)[None]
             f30 = free[..., None]
             diag0 = f30 * diag0 + (1.0 - f30) * eye0
-        k_flat0, idx0 = _kflat_and_idx(krep0)
         coarse0 = make_coarse_space(obj)
         c_mat0 = coarse_matrix(
-            coarse0, obj, k_flat0, dt, beta_eff, free, idx0, axis_name
+            coarse0, obj, krep0, dt, beta_eff, free, obj.element_indices,
+            axis_name,
         )
-        base_op0 = _decoupled_apply(
-            obj, krep0, dt, axis_name, element_backend, beta_eff
-        )
+        base_op0 = make_system_apply(obj, krep0, dt, axis_name, beta_eff)
         if free is None:
             op0 = base_op0
         else:

@@ -33,14 +33,14 @@ arc-length implementations work.  So the tangent here is DIRECT:
 
   * per-element exact Hessians of the elastic energy by ``jax.hessian``
     of the local (d+1)·d-coordinate element energy, vmapped over all
-    elements — one batched TPU/CPU-friendly computation per iterate,
+    elements — one batched computation per iterate,
     exact for every material (incl. corotated through the Higham polar);
   * assembled into a host scipy CSR (indices precomputed once) with the
     Dirichlet projection applied element-wise, and factorized by sparse
     f64 LU — O(E) assembly, one factorization shared by both corrector
-    solves.  Direct sparse factorization has no TPU story anyway (no
-    pivoting on the MXU), and continuation is an offline analysis: the
-    host LU at FEM bandwidths handles 1e5+ DOFs in seconds.
+    solves.  Continuation is an offline analysis: the host LU at FEM
+    bandwidths handles 1e5+ DOFs in seconds (a device-side f64 solve is
+    an open item).
 
 δλ per corrector comes from the constraint's quadratic (Crisfield), root
 picked to continue forward, with a linearized (Riks) fallback when the

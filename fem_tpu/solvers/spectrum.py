@@ -49,6 +49,7 @@ assumes.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import jax
@@ -56,6 +57,9 @@ import jax.numpy as jnp
 
 from fem_tpu.solvers.harmonic import participation_factors
 from fem_tpu.solvers.modal import ModalResult
+
+# Full-f32 products: a float32 matmul may otherwise run in TF32 on GPUs.
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 class SpectrumResult(NamedTuple):
@@ -118,7 +122,7 @@ def response_spectrum(
 
         def step(carry, a):
             y, peak = carry
-            y_new = e_mat @ y + s_vec * (-a)
+            y_new = _mm(e_mat, y) + s_vec * (-a)
             return (y_new, jnp.maximum(peak, jnp.abs(y_new[0]))), None
 
         (y, peak), _ = jax.lax.scan(

@@ -1,5 +1,5 @@
 # coding=utf-8
-"""Immutable configuration for the TPU-native FEM framework.
+"""Immutable configuration for the fem_tpu FEM framework.
 
 JSON schema parity with the reference (Jukgei/Finite-Element-Method:
 ``README.md:73-110``, parsed at ``utils.py:9-32``).  The reference copies config
@@ -16,6 +16,12 @@ from typing import Optional, Sequence, Tuple
 
 JACOBI_METHOD = 0  # reference: constants.py:14 (JACOBIN_METHOD)
 CONJUGATE_GRADIENT_METHOD = 1  # reference: constants.py:15
+
+OPERATOR_MODES = ("auto", "graph", "mxu")
+# Keys of earlier schema versions that chose among execution strategies of
+# an accelerator kernel stack that no longer exists.  A config naming one is
+# rejected rather than silently run on a different path.
+REMOVED_KEYS = ("frame_backend", "element_backend", "cg_fast_math")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +65,9 @@ class ObjectConfig:
     # Supported on every path: explicit (autodiff and analytic Piola
     # columns) and implicit — under hessian="reference" each material rides
     # the reference's decoupled one-block-per-element structure with its
-    # own analytic DP(F)[R⁻¹] (ops/element.first_piola_dp), so the full
-    # graph/mxu/blocked/fused operator ladder applies; hessian="exact_jvp"
-    # is the true-Newton alternative for any material.
+    # own analytic DP(F)[R⁻¹] (ops/element.first_piola_dp), so both
+    # operators (graph/mxu) apply; hessian="exact_jvp" is the true-Newton
+    # alternative for any material.
     material: str = "neo_hookean"
     # Dirichlet boundary conditions (extension — the reference has no
     # kinematic constraints at all; its only boundary handling is the sticky
@@ -190,14 +196,12 @@ class SimConfig:
     # Typed rigid obstacles beyond the reference's circles (extension —
     # ObstacleConfig: halfspace / box / sphere / mesh SDF); empty = parity.
     obstacles: Tuple[ObstacleConfig, ...] = ()
-    # Extension beyond the reference schema: implicit solve execution strategy.
-    # "auto" picks the dense MXU backend for small systems (solvers/dense.py)
-    # and the matrix-free operator otherwise; "matrix_free"/"dense" force one.
+    # Extension beyond the reference schema: implicit solve execution
+    # strategy.  "auto"/"matrix_free" run the O(E) matrix-free operator;
+    # "dense" materializes the reference's dense system (solvers/dense.py)
+    # where it implements the configured semantics
+    # (fem_tpu/strategy.uses_dense_solver).
     solver_backend: str = "auto"
-    # Element-kernel execution: "auto" resolves to the fused Pallas VMEM
-    # kernels (ops/pallas_kernels.py) on TPU — measured 1.5x faster on the
-    # explicit path — and to plain XLA elsewhere; "xla"/"pallas" force one.
-    element_backend: str = "auto"
     # Clamp determinants in the implicit path's F-inverse/log so degenerate
     # elements stay finite through impacts (the reference guards only the
     # Hessian's logJ, implicit.py:131, and NaNs otherwise). Off by default
@@ -210,7 +214,7 @@ class SimConfig:
     # Implicit time integration (extension, solvers/newton.py).
     # "semi_implicit" (parity default): the reference's ONE linearized solve
     # per substep (implicit.py:201-223) — blows up when κ = dt²‖K‖/m → 1
-    # (the dt ~ h wall, BASELINE.md).  "newton": fully implicit backward
+    # (the dt ~ h wall).  "newton": fully implicit backward
     # Euler on the elastic term — damped Newton with exact material-generic
     # HVPs and a residual line search closes the nonlinear residual
     # r(v) = (v−vₙ) − dt·M⁻¹·f(xₙ+dt·v) each substep, removing the dt ~ h
@@ -228,9 +232,9 @@ class SimConfig:
     # via the exact material HVP (jax.jvp of the assembled force, graph
     # chain); "decoupled" = modified Newton on the reference's decoupled
     # one-block-per-element linearization — each Newton step is one
-    # semi-implicit-shaped solve riding the blocked in-VMEM prep + blocked
-    # MXU operator (one prep yields both the residual force and the
-    # operator tables), the fast path at scale.
+    # semi-implicit-shaped solve on the graph operator (one element pass
+    # yields both the residual force and the operator's K blocks), the fast
+    # path at scale.
     newton_hessian: str = "exact"
     # Generalized-trapezoidal θ-scheme on the Newton integrator's elastic
     # term (extension; requires integrator="newton").  The residual becomes
@@ -253,20 +257,6 @@ class SimConfig:
     # deterministic parallel variant (extension): O(E) matrix-free per
     # iteration, typically needing more iterations per solve.
     jacobi_sweep: str = "serial"
-    # Frame execution: "auto" picks the whole-frame BLOCKED kernels on TPU
-    # when eligible (ops/pallas_blocked_frame.py — the entire rendered
-    # frame as ONE device op over VMEM-resident block tables; fastest
-    # measured), else the lax.scan op-composed path.  "blocked" /
-    # "blocked_explicit" force those kernels (interpret mode off-TPU);
-    # "fused" (opt-in) is the earlier UNblocked whole-frame kernel
-    # (experiments/pallas_frame.py) — parity-exact but 4.8× slower (O(E·N)
-    # one-hot gathers), kept as a documented alternative.
-    frame_backend: str = "auto"
-    # Extension: 2-plane split-dots for the CG operator application inside
-    # the fused kernels (~8e-6 relative operator error, ~1/3 less MXU
-    # weight traffic in the hot loop).  Positions/forces/rhs stay exact.
-    # Off by default — parity runs use exact 3-plane dots.
-    cg_fast_math: bool = False
     # Body-body contact (extension, fem_tpu/contact.py).  The reference's
     # bodies never interact (main.py:59-61 steps objects independently);
     # "penalty" adds per-substep particle-particle penalty forces between
@@ -304,10 +294,9 @@ class SimConfig:
     # vertices too.
     contact_surface_only: bool = True
     # Contact pair search strategy (fem_tpu/broadphase.py).  "dense"
-    # materializes the O(ns²) pair-coefficient matrices — one MXU matmul
-    # per body pair, which on TPU beats the gather-bound grid ~10-25× at
-    # every size that FITS (measured up to 98k participating vertices =
-    # 9 GiB pair matrix in 75 ms; fails to compile at 131k — BASELINE).
+    # materializes the O(ns²) pair-coefficient matrices — one matrix
+    # product per body pair; its memory grows as ns², so it stops fitting
+    # past ~10⁵ participating vertices.
     # "grid" is the structural-scaling path: a uniform grid (cell =
     # contact radius) rebuilt each substep via argsort + searchsorted,
     # O(ns·(3^d+1)/2·cap) candidates in static shapes (forward-only
@@ -324,8 +313,8 @@ class SimConfig:
     contact_cell_cap: int = 8
     # Adaptive-dt κ-guard (extension, solvers/adaptive.py).  The reference
     # integrates at fixed dt with no stability monitor and silently NaNs
-    # when κ = dt²·‖K‖/m → 1 (measured: 68k tets at dt=5e-4, the
-    # reference's own spot.obj at its default dt by t≈5 s — BASELINE.md).
+    # when κ = dt²·‖K‖/m → 1 (68k tets at dt=5e-4, the reference's own
+    # spot.obj at its default dt by t≈5 s of simulated time).
     # When true, each substep measures κ = max‖A_ii − I‖_F and splits into
     # 2/4/8 state-consistent inner steps at dt/n when it crosses
     # ``adaptive_dt_threshold``.  Off by default: guarded trajectories
@@ -335,8 +324,8 @@ class SimConfig:
     # CG preconditioning strategy (extension).  "reference" (parity
     # default) honors the `preconditioned` int: 1 = the reference's
     # normal-equations CG (AᵀAx = Aᵀb, implicit.py:289-299 — DOUBLES
-    # operator applies and squares the condition number; measured slower
-    # than plain CG at every compute-bound size).  "none" forces plain CG.
+    # operator applies and squares the condition number).  "none" forces
+    # plain CG.
     # "block_jacobi" runs true PCG on A with M⁻¹ = inverted per-particle
     # d×d diagonal blocks (solvers/implicit.preconditioned_conjugate_
     # gradient) — 1 operator apply/iter, same absolute rᵀr tolerance.
@@ -350,7 +339,7 @@ class SimConfig:
     # 160/442/500+-diverged at 16/64/256× the reference dt).  Honest cost
     # model: 3 operator applies/iter — it wins wall-clock only where the
     # iteration cut exceeds ~3× (≈64× dt and up, quasi-statics); at
-    # moderate dt plain CG stays faster (BASELINE.md rows).
+    # moderate dt plain CG needs fewer applies.
     cg_precond: str = "reference"
     # Coulomb friction coefficient of the unit-box domain walls (extension;
     # 0 = the reference's frictionless per-component zeroing).  Same
@@ -358,17 +347,10 @@ class SimConfig:
     # normal speed bounds the tangential speed reduction, so a body
     # resting on the floor decelerates at μ·g and sticks below the cone.
     wall_friction: float = 0.0
-    # Matrix-free operator execution: "auto" prefers the block-partitioned
-    # MXU operator (ops/blocking.py — in-VMEM one-hot incidence per
-    # locality block, measured 8.6× over the graph chain at 68k tets;
-    # build_object attaches a Blocking to every mesh) for CG solves, both
-    # single-chip and sharded (whole blocks partitioned across devices,
-    # one psum per apply); the gather/einsum/assembly graph chain serves
-    # Jacobi and as the forced-"graph" fallback.  "mxu" forces the dense
-    # edge-matrix formulation Sᵀ(K∘(Sx)) (only reachable when forced —
-    # build_object constructs the O(E·d·N) S matrix just for that mode);
-    # "blocked" forces blocked; "fused" forces the whole-solve VMEM kernel
-    # (ops/pallas_blocked_cg.py, single-chip).
+    # Matrix-free operator: "auto"/"graph" run the gather / per-element
+    # block product / assembly chain, O(E) per apply, on one device or
+    # sharded.  "mxu" asks build_object for the dense edge matrix and
+    # applies Sᵀ(K∘(Sx)) on one device (fem_tpu/strategy.py).
     operator_mode: str = "auto"
 
     def __post_init__(self):
@@ -389,6 +371,11 @@ class SimConfig:
                 "newton_theta != 1 requires integrator='newton' (the "
                 "semi-implicit reference integrator has no θ-scheme)"
             )
+        if self.operator_mode not in OPERATOR_MODES:
+            raise ValueError(
+                f"operator_mode must be one of {OPERATOR_MODES}, "
+                f"got {self.operator_mode!r}"
+            )
         if len(self.g_dir) != self.dim:
             raise ValueError(
                 f"g_dir has {len(self.g_dir)} components for dim={self.dim}"
@@ -405,6 +392,12 @@ def _tupled(seq: Sequence[float]) -> Tuple[float, ...]:
 
 def parse_config(data: dict) -> SimConfig:
     """Build a :class:`SimConfig` from the reference JSON schema dict."""
+    removed = [k for k in REMOVED_KEYS if k in data]
+    if removed:
+        raise ValueError(
+            f"config key(s) {removed} are no longer supported: the execution "
+            "strategy is chosen from the input (fem_tpu/strategy.py)"
+        )
     objects = tuple(
         ObjectConfig(
             id=int(o.get("id", 0)),
@@ -473,12 +466,9 @@ def parse_config(data: dict) -> SimConfig:
         blocks=blocks,
         obstacles=obstacles,
         solver_backend=str(data.get("solver_backend", "auto")),
-        element_backend=str(data.get("element_backend", "auto")),
         robust_inversion=bool(data.get("robust_inversion", False)),
         hessian=str(data.get("hessian", "reference")),
         jacobi_sweep=str(data.get("jacobi_sweep", "serial")),
-        frame_backend=str(data.get("frame_backend", "auto")),
-        cg_fast_math=bool(data.get("cg_fast_math", False)),
         contact=str(data.get("contact", "none")),
         contact_stiffness=float(data.get("contact_stiffness", 0.0)),
         contact_radius=float(data.get("contact_radius", 0.0)),

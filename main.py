@@ -1,11 +1,11 @@
 # coding=utf-8
-"""CLI driver for the TPU-native FEM framework.
+"""CLI driver for the fem_tpu FEM framework.
 
 Headless equivalent of the reference's interactive loop (main.py:32-133):
 ``python main.py --config default.json --seconds 5`` advances the simulation,
 captures frames at the configured fps, exports per-frame OBJs when enabled,
 and builds gif/mp4 at the end.  Interactive pause/resume/camera keys have no
-meaning on a display-less TPU host; ``--seconds``/``--frames`` bound the run
+meaning on a display-less accelerator host; ``--seconds``/``--frames`` bound the run
 instead, and ``--checkpoint-every`` / ``--resume`` add restartable state
 (capability the reference lacks, SURVEY §5).
 """
@@ -21,7 +21,9 @@ import numpy as np
 
 
 def run(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="FEM on TPU (JAX/Pallas)")
+    parser = argparse.ArgumentParser(
+        description="Hyperelastic FEM simulation (JAX)"
+    )
     parser.add_argument(
         "--config", type=str, default="configs/default.json",
         help="Please input a config json file.",
@@ -61,27 +63,20 @@ def run(argv=None) -> int:
                              "cadence (extension; any dim)")
     parser.add_argument("--sharded", action="store_true",
                         help="compile each body's frame under shard_map "
-                             "over ALL jax.devices() (elements/locality-"
-                             "blocks partitioned, one psum per operator "
-                             "apply) — multi-chip execution; identical "
+                             "over ALL jax.devices() (elements "
+                             "partitioned, one psum per operator apply) — "
+                             "multi-device execution; identical "
                              "trajectories to single-device")
     args = parser.parse_args(argv)
 
-    # Persistent XLA compilation cache: repeat runs of the same config skip
-    # the 30-240 s first-compile (disable with FEM_TPU_NO_CACHE=1).
-    if not os.environ.get("FEM_TPU_NO_CACHE"):
-        import jax
+    # Persistent compilation cache: repeat runs of the same config skip the
+    # first compile (fem_tpu/utils/runtime.py).
+    import jax
 
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get(
-                "FEM_TPU_CACHE_DIR",
-                os.path.expanduser("~/.cache/fem_tpu_xla"),
-            ),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from fem_tpu.utils.runtime import enable_compile_cache
 
-    from fem_tpu.render.raster import HeadlessRenderer
+    enable_compile_cache()
+
     from fem_tpu.scene import load_scene, method_banner
     from fem_tpu.sim import element_phi, make_frame_fn
     from fem_tpu.utils import io as fio
@@ -143,6 +138,8 @@ def run(argv=None) -> int:
 
     renderer = None
     if not args.no_render:
+        from fem_tpu.render.raster import HeadlessRenderer
+
         camera = None
         if args.camera:
             elev, azim = (float(x) for x in args.camera.split(","))
@@ -156,6 +153,8 @@ def run(argv=None) -> int:
 
     centers = np.asarray(obstacles.centers)
     radii = np.asarray(obstacles.radii)
+    iter_handles = []  # per-frame solver iterations, fetched after the run
+    t_first = None
     t0 = time.perf_counter()
 
     trace_ctx = None
@@ -189,6 +188,10 @@ def run(argv=None) -> int:
                 # See PARITY.md.
                 virtual_time += cfg.sim_count * cfg.delta_time
 
+        iter_handles.append([a.solver_iterations for a in per_body_aux])
+        if t_first is None:
+            jax.block_until_ready([s.state for s in scene])
+            t_first = time.perf_counter() - t0
         if (
             (cfg.is_output_obj or args.export_vtu)
             and (virtual_time / frame_time) > ply_cnt
@@ -301,6 +304,27 @@ def run(argv=None) -> int:
                     f" min|F|={m.min_det_f:.3f}"
                 )
             print(msg)
+
+    jax.block_until_ready([s.state for s in scene])
+    wall = time.perf_counter() - t0
+    frames_run = n_frames - start_frame
+    if frames_run > 0:
+        summary = (
+            f"{frames_run} frames in {wall:.2f} s: first frame "
+            f"{t_first:.2f} s (includes compilation)"
+        )
+        if frames_run > 1:
+            rate = (frames_run - 1) * cfg.sim_count / (wall - t_first)
+            summary += f", then {rate:.1f} steps/s"
+        body_iters = np.asarray(
+            [[np.asarray(h).sum() for h in frame] for frame in iter_handles]
+        ).sum(axis=0)
+        if body_iters.any():
+            per = ", ".join(
+                f"{it / (frames_run * cfg.sim_count):.2f}" for it in body_iters
+            )
+            summary += f"; solver iters/substep (mean): {per}"
+        print(summary)
 
     if args.export_vtu and vtu_entries:
         from fem_tpu.utils.vtu import write_pvd

@@ -1,4 +1,4 @@
-// fem_native: host-side mesh kernels for the TPU FEM framework.
+// fem_native: host-side mesh kernels for the fem_tpu FEM framework.
 //
 // Native counterpart of the geometry processing the reference delegates to
 // the tetgen/trimesh C++ wheels (reference object.py:134-156) plus its pure

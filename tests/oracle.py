@@ -55,15 +55,56 @@ class Oracle:
         )  # (E, d, d)
         return X @ self.ref_inv
 
-    def _grad(self):
-        """Assembled energy gradient (explicit.py:23-49 semantics)."""
+    def grad_columns(self):
+        """Per-element energy-gradient columns H = V·P(F)·R⁻ᵀ
+        (explicit.py:23-41 semantics, unclamped log)."""
         F = self._F()
         F_inv_T = np.swapaxes(np.linalg.inv(F), -1, -2)
         log_j = np.log(np.linalg.det(F))[:, None, None]
         P = self.mu * F - self.mu * F_inv_T + self.lam * log_j * F_inv_T
-        H = self.vol[:, None, None] * (
+        return self.vol[:, None, None] * (
             P @ np.swapaxes(self.ref_inv, -1, -2)
         )
+
+    def hessian_blocks(self):
+        """Per-element decoupled Hessian blocks K_e (implicit.py:114-150:
+        dF = R⁻¹, logJ clamped at 1e-4)."""
+        F = self._F()
+        F_inv = np.linalg.inv(F)
+        F_inv_T = np.swapaxes(F_inv, -1, -2)
+        log_j = np.log(np.maximum(np.linalg.det(F), 1e-4))[:, None, None]
+        dF = self.ref_inv
+        blk = (
+            self.mu * dF
+            + (self.mu - self.lam * log_j)
+            * (F_inv_T @ np.swapaxes(dF, -1, -2) @ F_inv_T)
+            + self.lam
+            * np.trace(F_inv @ dF, axis1=-2, axis2=-1)[:, None, None]
+            * F_inv_T
+        )
+        return -self.vol[:, None, None] * (
+            blk @ np.swapaxes(self.ref_inv, -1, -2)
+        )
+
+    def force_columns(self):
+        """Per-element implicit rhs force columns (implicit.py:65-107:
+        the λ/2·log det(FᵀF) form)."""
+        F = self._F()
+        F_inv_T = np.swapaxes(np.linalg.inv(F), -1, -2)
+        P = (
+            self.mu * F
+            - self.mu * F_inv_T
+            + self.lam / 2
+            * np.log(np.linalg.det(np.swapaxes(F, -1, -2) @ F))[:, None, None]
+            * F_inv_T
+        )
+        return -self.vol[:, None, None] * (
+            P @ np.swapaxes(self.ref_inv, -1, -2)
+        )
+
+    def _grad(self):
+        """Assembled energy gradient (explicit.py:23-49 semantics)."""
+        H = self.grad_columns()
         g = np.zeros_like(self.pos)
         for e in range(self.idx.shape[0]):
             f0 = np.zeros(self.d)
@@ -127,20 +168,7 @@ class Oracle:
     # -- implicit solve (implicit.py:64-404) ------------------------------
     def _dense_system(self, dt):
         d, n = self.d, self.n
-        F = self._F()
-        F_inv = np.linalg.inv(F)
-        F_inv_T = np.swapaxes(F_inv, -1, -2)
-        log_j = np.log(np.maximum(np.linalg.det(F), 1e-4))[:, None, None]
-        dF = self.ref_inv
-        blk = (
-            self.mu * dF
-            + (self.mu - self.lam * log_j)
-            * (F_inv_T @ np.swapaxes(dF, -1, -2) @ F_inv_T)
-            + self.lam
-            * np.trace(F_inv @ dF, axis1=-2, axis2=-1)[:, None, None]
-            * F_inv_T
-        )
-        K = -self.vol[:, None, None] * (blk @ np.swapaxes(self.ref_inv, -1, -2))
+        K = self.hessian_blocks()
         A = np.zeros((n, n, d, d))
         for e in range(self.idx.shape[0]):
             v0 = self.idx[e, 0]
@@ -155,14 +183,7 @@ class Oracle:
         Ad = A.transpose(0, 2, 1, 3).reshape(n * d, n * d)
 
         # b = v + dt M^-1 f  (implicit.py:65-107)
-        P = (
-            self.mu * F
-            - self.mu * F_inv_T
-            + self.lam / 2
-            * np.log(np.linalg.det(np.swapaxes(F, -1, -2) @ F))[:, None, None]
-            * F_inv_T
-        )
-        cols = -self.vol[:, None, None] * (P @ np.swapaxes(self.ref_inv, -1, -2))
+        cols = self.force_columns()
         b = self.vel.copy()
         for e in range(self.idx.shape[0]):
             f0 = np.zeros(d)
@@ -193,6 +214,7 @@ class Oracle:
             dvec = r + (dn / delta) * dvec
             delta = dn
             it += 1
+        self.cg_iterations = it
         self.vel = x.reshape(self.n, self.d)
 
     def solve_jacobi(self, dt, sweep="serial"):

@@ -2,8 +2,8 @@
 """Adaptive-dt κ-guard (solvers/adaptive.py, round-4 VERDICT r3 #4).
 
 The reference has no stability monitor; at scale the fixed config dt
-silently NaNs when κ = dt²‖K‖/m → 1 (BASELINE.md: 68k tets at dt=5e-4, the
-reference's own spot.obj at its default dt).  The guard measures exactly
+silently NaNs when κ = dt²‖K‖/m → 1 (68k tets at dt=5e-4, the reference's
+own spot.obj at its default dt).  The guard measures exactly
 that indicator each substep and splits into 2/4/8 state-consistent inner
 steps."""
 
@@ -61,8 +61,8 @@ def test_guarded_substep_identical_when_benign():
 
 def test_guard_rescues_kappa_blowup():
     """The measured reproducer: stiff fine 2D mesh at a dt with κ₀ ≈ 60 —
-    unguarded NaNs within a few frames (the integrator-regime blow-up the
-    68k/212k BASELINE rows document), guarded stays finite."""
+    unguarded NaNs within a few frames (the integrator-regime blow-up of
+    large meshes at the config dt), guarded stays finite."""
     _, obj, state0 = make_2d_object(subdivisions=7, E=4e5)
     obs = default_obstacles()
     dt = 2e-3

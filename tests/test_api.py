@@ -90,7 +90,7 @@ def test_simulation_sharded_matches_single_device():
     import jax
 
     assert len(jax.devices()) >= 2  # conftest forces the 8-device CPU mesh
-    # Implicit CG exercises the sharded blocked operator path.
+    # Implicit CG exercises the element-sharded operator path.
     cfg = _cfg_dict(
         auto_diff=False, use_explicit_method=False, implicit_method=1,
         preconditioned=1,

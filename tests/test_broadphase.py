@@ -287,9 +287,8 @@ def test_coulomb_pair_friction_block_on_slab():
 
 def test_contact_mu_broadphase_routing():
     """contact_mu works on BOTH broad phases: auto keeps dense for small
-    scenes (the explicit-pair-tensor Coulomb variant, ~10× faster than
-    the gather-bound grid on TPU — BASELINE.md) and still flips to grid
-    for many-body scenes."""
+    scenes (the explicit-pair-tensor Coulomb variant) and still flips to
+    grid for many-body scenes."""
     from fem_tpu.contact import build_contact_plan
     from fem_tpu.models.mesh import construct_2d_mesh
     from fem_tpu.models.state import build_object

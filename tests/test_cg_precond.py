@@ -7,14 +7,12 @@ The reference's only "preconditioner" is normal-equations CG (AᵀAx = Aᵀb,
 per-particle d×d diagonal blocks of A, 1 apply/iteration, terminating on the
 reference's absolute rᵀr ≤ 1e-5 so accepted solutions are interchangeable."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from fem_tpu.ops.element import hessian_blocks
-from fem_tpu.sim import make_substep_fn, supports_blocked_frame
+from fem_tpu.sim import make_frame_fn, make_substep_fn
 from fem_tpu.solvers.implicit import (
     conjugate_gradient,
     diagonal_blocks,
@@ -23,14 +21,20 @@ from fem_tpu.solvers.implicit import (
     preconditioned_conjugate_gradient,
 )
 from fem_tpu.utils.config import SimConfig
-from tests.utils import default_obstacles, make_2d_object
+from tests.utils import (
+    attach_edge_matrix,
+    default_obstacles,
+    default_sim_config_3d,
+    make_2d_object,
+    make_3d_object,
+)
 
 
 def _system(kappa_target=0.9, subdivisions=6, hetero_mass=False, b_scale=1.0):
     """A small system in the PHYSICAL κ < 1 regime: dt is calibrated so the
     largest ‖A_ii − I‖_F hits ``kappa_target`` (κ ≥ 1 makes the decoupled
     system indefinite — the measured integrator blow-up regime, where NO CG
-    variant converges; see BASELINE.md stability notes).  ``hetero_mass``
+    variant converges).  ``hetero_mass``
     randomizes masses ×[0.05, 20] — the case where the diagonal varies and
     block-Jacobi has something to equilibrate."""
     _, obj, state = make_2d_object(subdivisions=subdivisions)
@@ -103,19 +107,30 @@ def test_diagonal_blocks_from_matches_object_form():
     )
 
 
-def test_kplane_roundtrip():
-    from fem_tpu.ops.blocking import kplane_to_kflat, make_kplane
+def test_diagonal_blocks_match_dense_assembly():
+    """The per-particle diagonal blocks PCG inverts are the diagonal d×d
+    blocks of the densely assembled reference system (numpy loops,
+    models/state.dense_system_matrix)."""
+    from fem_tpu.models.state import dense_system_matrix
 
-    _, obj, state = make_2d_object(subdivisions=4)
-    blk = obj.blocking
-    assert blk is not None
+    _, obj, state = make_2d_object(subdivisions=5)
+    rng = np.random.default_rng(3)
+    state = state.replace(pos=state.pos + 0.002 * jnp.asarray(
+        rng.standard_normal(state.pos.shape), jnp.float32
+    ))
+    dt = 5e-3
     K = hessian_blocks(
-        state.pos, blk.element_indices, blk.ref_inv, blk.volume,
-        obj.mu, obj.s_lambda,
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda,
     )
-    kp = make_kplane(blk, K, obj.dim)
-    back = kplane_to_kflat(blk, kp, obj.dim)
-    assert (np.asarray(back) == np.asarray(K)).all()
+    diag = diagonal_blocks(obj, K, dt)
+    a = dense_system_matrix(obj, state, dt)
+    d, n = obj.dim, obj.particle_cnt
+    want = np.stack([a[i * d:(i + 1) * d, i * d:(i + 1) * d]
+                     for i in range(n)])
+    np.testing.assert_allclose(
+        np.asarray(diag), want, rtol=0, atol=1e-5 * np.abs(want).max()
+    )
 
 
 def _cfg(**kw):
@@ -133,11 +148,13 @@ def _cfg(**kw):
     return SimConfig(**base)
 
 
-@pytest.mark.parametrize("operator_mode", ["graph", "blocked"])
+@pytest.mark.parametrize("operator_mode", ["graph", "mxu"])
 def test_substep_block_jacobi_close_to_reference(operator_mode):
     """Same physics, different solver route: both satisfy the absolute
     residual tolerance, so velocities agree to solver tolerance."""
     _, obj, state = make_2d_object(subdivisions=4)
+    if operator_mode == "mxu":
+        obj = attach_edge_matrix(obj)
     state = state.replace(vel=state.vel + 0.3)
     obs = default_obstacles()
     s_ref, _ = make_substep_fn(
@@ -152,27 +169,22 @@ def test_substep_block_jacobi_close_to_reference(operator_mode):
     assert np.isfinite(np.asarray(s_pcg.pos)).all()
 
 
-def test_substep_block_jacobi_pallas_prep_matches_xla():
+def test_block_jacobi_solves_dense_system():
+    """The block-Jacobi PCG solution satisfies the densely assembled
+    reference system to the reference's absolute tolerance rᵀr ≤ 1e-5."""
+    from fem_tpu.models.state import dense_system_matrix
+    from fem_tpu.solvers.implicit import implicit_rhs, implicit_velocity_solve
+
     _, obj, state = make_2d_object(subdivisions=4)
     state = state.replace(vel=state.vel - 0.2)
-    obs = default_obstacles()
-    s_x, _ = make_substep_fn(
-        obj,
-        _cfg(
-            operator_mode="blocked", cg_precond="block_jacobi",
-            element_backend="xla",
-        ),
-    )(state, obs)
-    s_p, _ = make_substep_fn(
-        obj,
-        _cfg(
-            operator_mode="blocked", cg_precond="block_jacobi",
-            element_backend="pallas",
-        ),
-    )(state, obs)
-    np.testing.assert_allclose(
-        np.asarray(s_p.vel), np.asarray(s_x.vel), rtol=0, atol=5e-5
+    dt = 5e-4
+    solved, _ = implicit_velocity_solve(
+        obj, state, dt, 1, 1, cg_precond="block_jacobi"
     )
+    a = dense_system_matrix(obj, state, dt)
+    b = np.asarray(implicit_rhs(obj, state, dt), np.float64).reshape(-1)
+    r = b - a @ np.asarray(solved.vel, np.float64).reshape(-1)
+    assert float(r @ r) <= 1.5e-5
 
 
 def test_cg_precond_none_forces_plain_cg():
@@ -202,14 +214,21 @@ def test_block_jacobi_with_exact_jvp_raises():
         )(state, obs)
 
 
-def test_block_jacobi_not_eligible_for_fused_frame():
-    from tests.test_blocked_frame import _cfg as cfg3d, _scene
+def test_block_jacobi_3d_frame_close_to_reference():
+    """A 3D frame under block-Jacobi PCG tracks the reference CG frame to
+    solver tolerance."""
+    from fem_tpu.models.state import Obstacles
 
-    obj, _, _ = _scene()
-    assert supports_blocked_frame(obj, cfg3d())
-    assert not supports_blocked_frame(
-        obj, dataclasses.replace(cfg3d(), cg_precond="block_jacobi")
+    _, obj, state = make_3d_object(subdivisions=3)
+    state = state.replace(vel=state.vel + 0.2)
+    obs = Obstacles.from_configs((), 3)
+    s_ref, _ = make_frame_fn(obj, default_sim_config_3d(sim_count=4))(
+        state, obs
     )
-    assert supports_blocked_frame(
-        obj, dataclasses.replace(cfg3d(), cg_precond="none")
+    s_pcg, _ = make_frame_fn(
+        obj, default_sim_config_3d(sim_count=4, cg_precond="block_jacobi")
+    )(state, obs)
+    np.testing.assert_allclose(
+        np.asarray(s_pcg.pos), np.asarray(s_ref.pos), rtol=0, atol=1e-5
     )
+    assert np.isfinite(np.asarray(s_pcg.vel)).all()

@@ -1,5 +1,5 @@
 # coding=utf-8
-"""Dense MXU backend vs matrix-free: identical operator, identical solves."""
+"""Dense backend vs matrix-free: identical operator, identical solves."""
 
 import jax.numpy as jnp
 import numpy as np

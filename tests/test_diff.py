@@ -149,7 +149,7 @@ def test_diff_forward_matches_parity_path_explicit(cfg_kwargs):
     """With params lifted from the object, the explicit diff substep computes
     the exact arithmetic of the op-composed XLA path."""
     _, obj, state = make_2d_object(subdivisions=4)
-    cfg = default_sim_config(element_backend="xla", **cfg_kwargs)
+    cfg = default_sim_config(**cfg_kwargs)
     obstacles = default_obstacles()
     sub_ref = make_substep_fn(obj, cfg)
     sub_diff = jax.jit(make_diff_substep_fn(obj, cfg))
@@ -175,7 +175,7 @@ def test_diff_implicit_substep_matches_dense_f64_solve():
 
     _, obj, state = make_3d_object(subdivisions=2)
     state = _squashed(state)
-    cfg = default_sim_config_3d(element_backend="xla", operator_mode="graph")
+    cfg = default_sim_config_3d(operator_mode="graph")
     obstacles = Obstacles.from_configs((), 3)
     params = params_from_object(obj)
     sub_diff = jax.jit(make_diff_substep_fn(obj, cfg, n_cg_iters=128))
@@ -213,7 +213,7 @@ def test_diff_forward_tracks_parity_path_implicit():
     are the reference's solver slack, not a diff-path defect)."""
     _, obj, state = make_3d_object(subdivisions=2)
     state = _squashed(state)
-    cfg = default_sim_config_3d(element_backend="xla", operator_mode="graph")
+    cfg = default_sim_config_3d(operator_mode="graph")
     obstacles = Obstacles.from_configs((), 3)
     sub_ref = make_substep_fn(obj, cfg)
     sub_diff = jax.jit(make_diff_substep_fn(obj, cfg, n_cg_iters=64))

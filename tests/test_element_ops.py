@@ -159,7 +159,7 @@ def test_segment_assembly_matches_loop():
 
 
 def test_gather_assembly_matches_segment_assembly():
-    """The gather-plan assembly (TPU-preferred) must equal segment-sum —
+    """The gather-plan assembly (deterministic sums) must equal segment-sum —
     including the two-tier split form (ops/assembly.split_two_tier)."""
     from fem_tpu.ops.assembly import (
         build_gather_plan,

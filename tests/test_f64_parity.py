@@ -73,14 +73,13 @@ def test_f64_substep_tracks_oracle_to_1e8(mode):
                 dim=2, sim_count=1, auto_diff=False,
                 use_explicit_method=True, objects=(ocfg,),
                 blocks=blocks_cfg, operator_mode="graph",
-                element_backend="xla",
             )
         else:
             cfg = SimConfig(
                 dim=2, sim_count=1, auto_diff=False,
                 use_explicit_method=False, implicit_method=1,
                 preconditioned=1, objects=(ocfg,), blocks=blocks_cfg,
-                operator_mode="graph", element_backend="xla",
+                operator_mode="graph",
             )
         step = make_substep_fn(obj, cfg)
         assert state.pos.dtype == jnp.float64

@@ -138,20 +138,24 @@ def test_frictional_sphere_routes_to_extension_path():
     assert 0.0 < v2[0, 0] < 1.0  # tangential reduced but not zeroed
 
 
-def test_friction_gates_fused_frame():
-    """Wall friction / frictional obstacles must route off the fused
-    whole-frame kernels (which implement reference advection only)."""
-    from fem_tpu.sim import _circles_only
+def test_frictional_spheres_stay_on_extension_path():
+    """A frictional sphere keeps its Coulomb coefficient on the SDF
+    extension arrays; a frictionless one folds into the reference circle
+    arrays (which carry no per-obstacle friction)."""
+    from fem_tpu.obstacles import has_extensions
 
-    assert _circles_only(_base_cfg())
-    assert not _circles_only(_base_cfg(wall_friction=0.2))
-    assert not _circles_only(_base_cfg(obstacles=(
-        ObstacleConfig(type="sphere", center=(0.5, 0.5), radius=0.1,
-                       friction=0.4),
-    )))
-    assert _circles_only(_base_cfg(obstacles=(
-        ObstacleConfig(type="sphere", center=(0.5, 0.5), radius=0.1),
-    )))
+    def obstacles(friction):
+        cfg = _base_cfg(obstacles=(
+            ObstacleConfig(type="sphere", center=(0.5, 0.5), radius=0.1,
+                           friction=friction),
+        ))
+        return Obstacles.from_configs(cfg.blocks, cfg.dim, cfg.obstacles)
+
+    rough = obstacles(0.4)
+    assert has_extensions(rough) and rough.sph_f == (0.4,)
+    smooth = obstacles(0.0)
+    assert not has_extensions(smooth)
+    np.testing.assert_allclose(np.asarray(smooth.radii), [0.1])
 
 
 def test_negative_friction_rejected():

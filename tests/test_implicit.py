@@ -175,7 +175,7 @@ def test_jacobi_solves_system():
 
 def test_mxu_operator_matches_graph():
     """The dense edge-matrix operator Sᵀ(K∘(Sx)) must match the graph
-    gather/scatter operator exactly (same linear map, MXU execution)."""
+    gather/scatter operator exactly (same linear map, dense execution)."""
     import jax.numpy as jnp
 
     from tests.utils import attach_edge_matrix

@@ -2,11 +2,11 @@
 """Inelastic materials on the fast execution paths (round-5, VERDICT r4 #1).
 
 Plasticity/viscoelasticity are expressed as material layers
-(ops/inelastic.material_layers) consumed by EVERY operator backend — the
-graph operator, the blocked MXU operator (xla and in-VMEM pallas prep), the
-fused whole-solve kernel, Newton (decoupled + exact), the explicit blocked
-prep, and the sharded path.  These tests pin cross-backend consistency; the
-physics itself is pinned in tests/test_inelastic.py."""
+(ops/inelastic.material_layers) consumed by EVERY execution path — the
+graph and mxu operators, every CG variant, Newton (decoupled + exact), the
+explicit gradient, the differentiable substeps and the sharded path.  These
+tests pin cross-path consistency; the physics itself is pinned in
+tests/test_inelastic.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +16,7 @@ from fem_tpu.models.state import Obstacles
 from fem_tpu.sim import make_substep_fn
 from fem_tpu.utils.config import SimConfig
 from tests.utils import (
+    attach_edge_matrix,
     default_obstacles,
     default_sim_config,
     make_2d_object,
@@ -50,48 +51,44 @@ MATS = [
 MAT_IDS = ["plastic", "viscous", "both"]
 
 
-def test_layer_ref_inv_blocked_matches_permuted():
-    from fem_tpu.ops.inelastic import (
-        effective_ref_inv, layer_ref_inv_blocked,
-    )
+def test_layer_ref_inv_local_composes_rest_inverse():
+    """A layer's effective rest-edge inverse is R⁻¹·F_i⁻¹ per element (the
+    pure elastic layer, F_i⁻¹ = None, is R⁻¹ itself)."""
+    from fem_tpu.ops.inelastic import layer_ref_inv_local
 
     _, obj, state = make_2d_object(subdivisions=4, plastic_yield=0.02)
     rng = np.random.default_rng(0)
-    fi = jnp.asarray(
-        np.eye(2, dtype=np.float32)
-        + 0.05 * rng.standard_normal((obj.element_cnt, 2, 2)).astype(
-            np.float32
-        )
-    )
-    blk = obj.blocking
-    got = np.asarray(layer_ref_inv_blocked(blk, fi))
-    want = np.asarray(
-        effective_ref_inv(obj.ref_inv, fi)
-    )[np.asarray(blk.element_perm)]
+    fi = np.eye(2, dtype=np.float32) + 0.05 * rng.standard_normal(
+        (obj.element_cnt, 2, 2)
+    ).astype(np.float32)
+    got = np.asarray(layer_ref_inv_local(obj.ref_inv, jnp.asarray(fi)))
+    want = np.einsum("eij,ejk->eik", np.asarray(obj.ref_inv, np.float64), fi)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert layer_ref_inv_local(obj.ref_inv, None) is obj.ref_inv
 
 
 @pytest.mark.parametrize("mat", MATS, ids=MAT_IDS)
 @pytest.mark.parametrize(
     "fast",
     [
-        dict(operator_mode="blocked", element_backend="xla"),
-        dict(operator_mode="blocked", element_backend="pallas"),
-        dict(operator_mode="fused", element_backend="xla"),
+        dict(operator_mode="mxu"),
+        dict(cg_precond="block_jacobi"),
+        dict(preconditioned=1),
     ],
-    ids=["blocked-xla", "blocked-pallas", "fused"],
+    ids=["mxu", "block-jacobi", "normal-equations"],
 )
 def test_implicit_fast_paths_match_graph(mat, fast):
-    """Semi-implicit CG with inelastic layers: blocked / pallas-prep / fused
-    whole-solve must match the graph operator (same decoupled system, pure
-    execution-strategy change; float reorder only)."""
-    cfg_graph = _cfg(operator_mode="graph", element_backend="xla")
+    """Semi-implicit CG with inelastic layers: the dense edge-matrix
+    operator, block-Jacobi PCG and the normal-equations CG solve the same
+    layered system as plain CG on the graph operator (float reorder and
+    solver tolerance only)."""
+    cfg_graph = _cfg(operator_mode="graph")
     cfg_fast = _cfg(**fast)
     _, obj, state0 = make_2d_object(subdivisions=4, **mat)
     state0 = _kicked(state0)
     obstacles = default_obstacles()
     fn_g = make_substep_fn(obj, cfg_graph)
-    fn_f = make_substep_fn(obj, cfg_fast)
+    fn_f = make_substep_fn(attach_edge_matrix(obj), cfg_fast)
     sg, sf = state0, state0
     for _ in range(20):
         sg, _ = fn_g(sg, obstacles)
@@ -108,11 +105,15 @@ def test_implicit_fast_paths_match_graph(mat, fast):
 
 @pytest.mark.parametrize("mat", MATS, ids=MAT_IDS)
 def test_explicit_layered_gradient_backends_agree(mat):
-    """The layered analytic gradient on every explicit backend (graph
-    assemble, blocked xla, blocked in-VMEM pallas prep) agrees with the
-    original inelastic_energy_gradient (graph chain)."""
+    """The layered analytic gradient agrees with the direct inelastic
+    gradient (graph chain) and with reverse-mode AD of the total inelastic
+    energy at frozen internal variables."""
+    import jax
+
     from fem_tpu.ops.inelastic import (
-        inelastic_energy_gradient, material_layers,
+        inelastic_element_energies,
+        inelastic_energy_gradient,
+        material_layers,
     )
     from fem_tpu.solvers.explicit import analytic_energy_gradient
 
@@ -128,27 +129,37 @@ def test_explicit_layered_gradient_backends_agree(mat):
     state = advance_internal(obj, state, 1e-4)  # flow internal vars
     layers = material_layers(obj, state)
     ref = np.asarray(inelastic_energy_gradient(obj, state, state.pos))
-    for backend in ("xla", "pallas"):
-        got = np.asarray(
-            analytic_energy_gradient(
-                obj, state.pos, None, backend, layers
-            )
-        )
-        scale = np.abs(ref).max()
+    autodiff = np.asarray(jax.grad(
+        lambda p: jnp.sum(inelastic_element_energies(obj, state, p))
+    )(state.pos))
+    got = np.asarray(analytic_energy_gradient(obj, state.pos, None, layers))
+    scale = np.abs(ref).max()
+    for name, other in (("direct", ref), ("autodiff", autodiff)):
         np.testing.assert_allclose(
-            got, ref, rtol=1e-4, atol=2e-5 * max(scale, 1.0),
-            err_msg=backend,
+            got, other, rtol=1e-4, atol=2e-5 * max(scale, 1.0),
+            err_msg=name,
         )
 
 
 @pytest.mark.parametrize("mat", MATS, ids=MAT_IDS)
 def test_explicit_substep_backends_agree(mat):
-    cfg_x = _cfg(use_explicit_method=True, element_backend="xla")
-    cfg_p = _cfg(use_explicit_method=True, element_backend="pallas")
+    """The explicit layered substep matches the differentiable substep
+    (fem_tpu/diff.py, an independent implementation of the same step)."""
+    import jax
+
+    from fem_tpu.diff import make_diff_substep_fn, params_from_object
+
+    cfg = _cfg(use_explicit_method=True)
     _, obj, state0 = make_2d_object(subdivisions=4, **mat)
     state0 = _kicked(state0)
     obstacles = default_obstacles()
-    fx, fp = make_substep_fn(obj, cfg_x), make_substep_fn(obj, cfg_p)
+    diff_step = jax.jit(make_diff_substep_fn(obj, cfg))
+    params = params_from_object(obj)
+    fx = make_substep_fn(obj, cfg)
+
+    def fp(s, obs):
+        return diff_step(params, s, obs), None
+
     sx, sp = state0, state0
     for _ in range(20):
         sx, _ = fx(sx, obstacles)
@@ -261,9 +272,9 @@ def test_sharded_inelastic_matches_single_device(mat, overrides):
         )
 
 
-def test_sharded_inelastic_3d_blocked():
-    """3D inelastic under shard_map rides the block-sharded MXU operator
-    (element_perm gathers from the replicated internal variables)."""
+def test_sharded_inelastic_3d():
+    """3D inelastic under shard_map: element-sharded graph operator with the
+    internal variables replicated (shard rows sliced by axis index)."""
     from fem_tpu.parallel.sharding import (
         make_element_mesh, make_sharded_substep_fn,
     )
@@ -271,7 +282,6 @@ def test_sharded_inelastic_3d_blocked():
 
     cfg_all = default_sim_config_3d(
         sim_count=2, implicit_method=1, preconditioned=0,
-        operator_mode="blocked",
     )
     _, obj, state = make_3d_object(subdivisions=3, plastic_yield=0.02)
     state = _kicked(state, scale=0.4)

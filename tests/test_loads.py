@@ -6,15 +6,13 @@ box, mass-weighted (refinement-independent).  Applied on every integration
 path (explicit / autodiff / implicit via the rhs fold), in the
 differentiable substeps, under sharding, and inside solve_static."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from fem_tpu.models.mesh import construct_2d_mesh
 from fem_tpu.models.state import Obstacles, build_object
-from fem_tpu.sim import _cfg_kwargs, make_frame_fn, substep
+from fem_tpu.sim import _cfg_kwargs, make_frame_fn, make_substep_fn, substep
 from fem_tpu.utils.config import ObjectConfig, SimConfig, parse_config
 
 
@@ -110,7 +108,7 @@ def test_diff_substep_forward_parity_with_load():
             implicit_method=1, preconditioned=0, cg_precond="none",
         ),
     ):
-        cfg = _cfg(element_backend="xla", operator_mode="graph", **kw)
+        cfg = _cfg(operator_mode="graph", **kw)
         sub = make_diff_substep_fn(obj, cfg, n_cg_iters=60)
         s_diff = sub(params_from_object(obj), state, obs)
         s_ref, _ = substep(obj, state, obs, **_cfg_kwargs(cfg))
@@ -146,21 +144,19 @@ def test_static_equilibrium_includes_load():
 
 
 def test_frame_fn_with_load_matches_graph_reference():
-    """make_frame_fn honors loads on the auto backend path (the fused
-    whole-frame kernels gate off when static_load is present) — frames
-    match the explicit graph-path reference."""
+    """make_frame_fn honors loads: one frame (a lax.scan over sim_count
+    substeps) matches the same number of single compiled substeps."""
     obj, state = _loaded_object(f_total=(0.3, 0.1))
     obs = Obstacles.from_configs((), 2)
     cfg_auto = _cfg(
         sim_count=4, use_explicit_method=False, auto_diff=False,
         implicit_method=1, preconditioned=0,
     )
-    cfg_graph = dataclasses.replace(
-        cfg_auto, operator_mode="graph", element_backend="xla",
-        frame_backend="scan",
-    )
     s_a, _ = make_frame_fn(obj, cfg_auto)(state, obs)
-    s_g, _ = make_frame_fn(obj, cfg_graph)(state, obs)
+    step = make_substep_fn(obj, cfg_auto)
+    s_g = state
+    for _ in range(cfg_auto.sim_count):
+        s_g, _ = step(s_g, obs)
     np.testing.assert_allclose(
         np.asarray(s_a.vel), np.asarray(s_g.vel), rtol=0, atol=2e-5
     )

@@ -15,7 +15,7 @@ from fem_tpu.models.state import Obstacles, build_object
 from fem_tpu.sim import make_frame_fn
 from fem_tpu.utils.config import ObjectConfig, SimConfig
 from fem_tpu.utils.profiling import frame_metrics
-from tests.test_blocked import _cube_mesh
+from tests.utils import cube_tet_mesh
 from tests.utils import default_obstacles, default_sim_config, make_2d_object
 
 
@@ -26,7 +26,7 @@ def test_3d_implicit_5s_arc_envelope():
     energy decays to the damped rest jitter, min det F bottoms at impact
     and stabilizes (no slow drift toward inversion), elastic energy settles
     to a flat envelope."""
-    nodes, f, tets = _cube_mesh(spacing=0.3)
+    nodes, f, tets = cube_tet_mesh(spacing=0.3)
     nodes = nodes * 0.3
     ocfg = ObjectConfig(
         obj="cube", center=(0.5, 0.55, 0.5), rho=1000.0, E=4e4, nu=0.3,

@@ -4,12 +4,14 @@
 Each material (stvk / linear / corotated) rides the reference's decoupled
 one-block-per-element Hessian structure (reference solver/implicit.py:
 141-194) with its own analytic ``DP(F)[R_inv]`` integrand
-(ops/element.first_piola_dp), so the graph/mxu/blocked/fused operator ladder
-and the Pallas element chains serve every material.  These tests pin:
+(ops/element.first_piola_dp), so both operators (graph/mxu) serve every
+material.  These tests pin:
 
   * the analytic DP against a jvp oracle of the analytic Piola (exact for
     stvk/linear; fixed-R jvp for corotated);
-  * the planar Pallas chains against the XLA element functions;
+  * the analytic force columns against a float64 autodiff gradient of the
+    energy, and the matrix-free operator / solve against a dense numpy
+    assembly of the reference's A;
   * the decoupled-Hessian implicit step against the exact-Newton
     (hessian="exact_jvp") step — different linearizations of the same force,
     so velocities agree to O(dt²·coupling);
@@ -27,7 +29,6 @@ import pytest
 from fem_tpu.models.state import Obstacles, build_object
 from fem_tpu.ops import smallmat as sm
 from fem_tpu.ops.element import (
-    explicit_grad_columns,
     first_piola,
     first_piola_dp,
     hessian_blocks,
@@ -35,8 +36,13 @@ from fem_tpu.ops.element import (
 from fem_tpu.sim import make_frame_fn, make_substep_fn
 from fem_tpu.utils.config import BlockConfig, ObjectConfig, SimConfig
 from tests.utils import (
+    attach_edge_matrix,
     default_obstacles,
+    default_sim_config_3d,
+    dense_system_from_blocks,
+    energy_gradient_f64,
     make_2d_object,
+    make_3d_object,
     two_tet_object,
 )
 
@@ -104,54 +110,45 @@ def test_hessian_blocks_nh_default_unchanged():
 
 
 @pytest.mark.parametrize("material", MATERIALS)
-def test_pallas_chain_matches_xla_k_and_h(material):
-    """hessian_and_force_pallas(material) vs the XLA (K, −grad cols) pair —
-    the planar chains and the batched small-matrix forms must agree."""
-    from fem_tpu.ops.pallas_kernels import hessian_and_force_pallas
+def test_operator_matches_dense_assembly(material):
+    """The matrix-free operator on a material's K blocks equals the dense
+    numpy assembly of A from the same blocks (reference scatter loop)."""
+    from fem_tpu.solvers.implicit import make_system_apply
 
     _, obj, state = make_2d_object(subdivisions=4)
     pos = state.pos + 0.01 * jnp.sin(jnp.arange(state.pos.size)).reshape(
         state.pos.shape
     )
-    mu, lam = obj.mu, obj.s_lambda
-    k_ref = hessian_blocks(
-        pos, obj.element_indices, obj.ref_inv, obj.volume, mu, lam,
-        False, material,
+    K = hessian_blocks(
+        pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda, False, material,
     )
-    h_ref = -explicit_grad_columns(
-        pos, obj.element_indices, obj.ref_inv, obj.volume, mu, lam, material
+    dt = 5e-3
+    x = jnp.cos(jnp.arange(state.pos.size, dtype=jnp.float32)).reshape(
+        state.pos.shape
     )
-    k_got, h_got = hessian_and_force_pallas(
-        pos, obj.element_indices, obj.ref_inv, obj.volume, mu, lam,
-        False, material,
-    )
-    scale_k = float(jnp.max(jnp.abs(k_ref))) + 1e-30
-    scale_h = float(jnp.max(jnp.abs(h_ref))) + 1e-30
+    got = np.asarray(make_system_apply(obj, K, dt)(x)).reshape(-1)
+    want = dense_system_from_blocks(obj, K, dt) @ np.asarray(
+        x, np.float64
+    ).reshape(-1)
     np.testing.assert_allclose(
-        np.asarray(k_got), np.asarray(k_ref), rtol=0, atol=3e-5 * scale_k
-    )
-    np.testing.assert_allclose(
-        np.asarray(h_got), np.asarray(h_ref), rtol=0, atol=3e-5 * scale_h
+        got, want, rtol=0, atol=2e-6 * np.abs(want).max()
     )
 
 
 @pytest.mark.parametrize("material", MATERIALS)
-def test_explicit_pallas_columns_match_xla(material):
-    from fem_tpu.ops.pallas_kernels import explicit_grad_columns_pallas
+def test_explicit_columns_match_energy_gradient(material):
+    """The analytic force columns, assembled, equal the float64 autodiff
+    gradient of the material's total energy."""
+    from fem_tpu.solvers.explicit import analytic_energy_gradient
 
     _, obj, state = two_tet_object()
+    obj = obj.replace(material=material)
     pos = state.pos * jnp.float32(1.05)
-    cols_ref = explicit_grad_columns(
-        pos, obj.element_indices, obj.ref_inv, obj.volume,
-        obj.mu, obj.s_lambda, material,
-    )
-    cols_got = explicit_grad_columns_pallas(
-        pos, obj.element_indices, obj.ref_inv, obj.volume,
-        obj.mu, obj.s_lambda, material,
-    )
-    scale = float(jnp.max(jnp.abs(cols_ref))) + 1e-30
+    got = np.asarray(analytic_energy_gradient(obj, pos))
+    want = energy_gradient_f64(obj, pos)
     np.testing.assert_allclose(
-        np.asarray(cols_got), np.asarray(cols_ref), rtol=0, atol=3e-5 * scale
+        got, want, rtol=0, atol=3e-5 * np.abs(want).max()
     )
 
 
@@ -191,60 +188,69 @@ def test_implicit_decoupled_close_to_exact_newton(material):
 
 @pytest.mark.parametrize("material", MATERIALS)
 def test_implicit_materials_all_operator_modes_agree(material):
-    """graph / mxu / blocked operator modes produce the same substep for
-    every material (the blocked path computes K/cols on the block-ordered
-    element copies; mxu uses the dense edge matrix)."""
+    """graph and mxu (dense edge matrix) operator modes produce the same
+    substep for every material."""
     _, obj, state = make_2d_object(subdivisions=4)
     obj = obj.replace(material=material)
     state = state.replace(vel=state.vel - 0.2)
     obs = default_obstacles()
     results = {}
-    for mode in ("graph", "blocked"):
+    for mode, o in (("graph", obj), ("mxu", attach_edge_matrix(obj))):
         cfg = _implicit_cfg(operator_mode=mode)
-        s, aux = make_substep_fn(obj, cfg)(state, obs)
+        s, aux = make_substep_fn(o, cfg)(state, obs)
         results[mode] = np.asarray(s.vel)
         assert np.isfinite(results[mode]).all()
     np.testing.assert_allclose(
-        results["blocked"], results["graph"], rtol=0, atol=2e-5
+        results["mxu"], results["graph"], rtol=0, atol=2e-5
     )
 
 
 @pytest.mark.parametrize("material", MATERIALS)
-def test_implicit_materials_pallas_prep_matches_xla(material):
-    """element_backend='pallas' (blocked in-VMEM prep, material chains) vs
-    'xla' on the blocked operator path."""
+def test_implicit_material_solve_matches_dense_system(material):
+    """The semi-implicit CG solve for each material satisfies the densely
+    assembled system A·v = b to the reference's absolute tolerance, with b
+    from the float64 energy gradient."""
+    from fem_tpu.solvers.implicit import implicit_velocity_solve
+
     _, obj, state = make_2d_object(subdivisions=4)
     obj = obj.replace(material=material)
-    state = state.replace(vel=state.vel + 0.1)
-    obs = default_obstacles()
-    cfg_x = _implicit_cfg(operator_mode="blocked", element_backend="xla")
-    cfg_p = _implicit_cfg(operator_mode="blocked", element_backend="pallas")
-    s_x, _ = make_substep_fn(obj, cfg_x)(state, obs)
-    s_p, _ = make_substep_fn(obj, cfg_p)(state, obs)
-    np.testing.assert_allclose(
-        np.asarray(s_p.vel), np.asarray(s_x.vel), rtol=0, atol=3e-5
+    rng = np.random.default_rng(5)
+    state = state.replace(
+        pos=state.pos + 0.004 * jnp.asarray(
+            rng.standard_normal(state.pos.shape), jnp.float32
+        ),
+        vel=state.vel + 0.1,
     )
+    dt = 5e-4
+    solved, aux = implicit_velocity_solve(obj, state, dt, 1, 0)
+    K = hessian_blocks(
+        state.pos, obj.element_indices, obj.ref_inv, obj.volume, obj.mu,
+        obj.s_lambda, False, material,
+    )
+    a = dense_system_from_blocks(obj, K, dt)
+    mass = np.asarray(obj.mass, np.float64)[:, None]
+    b = np.asarray(state.vel, np.float64) - dt * energy_gradient_f64(
+        obj, state.pos
+    ) / mass
+    r = b.reshape(-1) - a @ np.asarray(solved.vel, np.float64).reshape(-1)
+    assert int(aux.iterations) > 0
+    assert float(r @ r) <= 2e-5
 
 
-def test_fused_whole_frame_kernel_stvk():
-    """The whole-frame fused kernel runs material chains in-kernel: stvk
-    frames match the op-composed stvk path (interpret mode)."""
-    from tests.test_blocked_frame import _cfg, _scene
-
-    obj, state0, obstacles = _scene()
-    obj = obj.replace(material="stvk")
-    cfg_ops = _cfg(preconditioned=0)
-    cfg_fused = dataclasses.replace(cfg_ops, frame_backend="blocked")
-    ref_frame = make_frame_fn(obj, cfg_ops)
-    got_frame = make_frame_fn(obj, cfg_fused)
-    s_ref, s_got = state0, state0
-    for _ in range(3):
-        s_ref, _ = ref_frame(s_ref, obstacles)
-        s_got, _ = got_frame(s_got, obstacles)
-    scale = float(jnp.max(jnp.abs(s_ref.pos)))
+def test_stvk_frame_equals_repeated_substeps():
+    """A 3D stvk frame (one lax.scan over sim_count substeps) equals the
+    same number of single compiled substeps."""
+    _, obj, state = make_3d_object(subdivisions=3, material="stvk")
+    state = state.replace(vel=state.vel - 0.3)
+    obs = Obstacles.from_configs((), 3)
+    cfg = default_sim_config_3d(sim_count=3, preconditioned=0)
+    s_frame, _ = make_frame_fn(obj, cfg)(state, obs)
+    step = make_substep_fn(obj, cfg)
+    s = state
+    for _ in range(cfg.sim_count):
+        s, _ = step(s, obs)
     np.testing.assert_allclose(
-        np.asarray(s_got.pos), np.asarray(s_ref.pos),
-        rtol=0, atol=5e-5 * scale,
+        np.asarray(s_frame.pos), np.asarray(s.pos), rtol=0, atol=1e-6
     )
 
 
@@ -259,7 +265,6 @@ def test_diff_explicit_substep_uses_material():
     cfg = SimConfig(
         dim=2, delta_time=5e-4, sim_count=1, auto_diff=False,
         use_explicit_method=True, g_dir=(0.0, -1.0),
-        element_backend="xla",
     )
     obs = default_obstacles()
     sub = make_diff_substep_fn(obj, cfg)

@@ -19,7 +19,7 @@ from tests.utils import make_2d_object, single_tet_object
 
 def test_2d_grid_counts():
     # Reference default: 10 subdivisions -> 121 vertices, 200 triangles
-    # (default.json:19-20, object.py:98-111; BASELINE.md).
+    # (default.json:19-20, object.py:98-111).
     cfg = ObjectConfig(subdivisions=10, side_length=0.2)
     v, f, e = construct_2d_mesh(cfg)
     assert v.shape == (121, 2)

@@ -4,7 +4,7 @@ solvers/newton.py).
 
 The reference's implicit method is semi-implicit: ONE linearized solve per
 substep (/root/reference/solver/implicit.py:201-223), which blows up when
-κ = dt²‖K‖/m → 1 (the dt ~ h wall every large-mesh BASELINE row documents).
+κ = dt²‖K‖/m → 1 (the dt ~ h wall of large meshes).
 The Newton integrator closes the nonlinear elastic residual
 r(v) = (v − vₙ) − dt·M⁻¹·f(xₙ + dt·v) each substep; these tests pin
 
@@ -245,7 +245,7 @@ def test_newton_external_force_matches_semi_in_linear_limit():
 
 def test_decoupled_mode_agrees_in_stable_regime():
     """Modified Newton (newton_hessian="decoupled" — each step a
-    semi-implicit-shaped solve on the blocked operator) must land on the
+    semi-implicit-shaped solve on the graph operator) must land on the
     same nonlinear root as exact Newton: both drive max|r| below
     newton_tol, so the velocities agree to ~tol."""
     _, obj, state = make_2d_object(subdivisions=5)

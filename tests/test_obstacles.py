@@ -19,14 +19,14 @@ from fem_tpu.obstacles import (
     has_extensions,
     sample_sdf_grid,
 )
-from fem_tpu.sim import make_substep_fn, supports_blocked_frame
+from fem_tpu.sim import make_substep_fn
 from fem_tpu.utils.config import (
     BlockConfig,
     ObstacleConfig,
     SimConfig,
     parse_config,
 )
-from tests.utils import make_2d_object, two_tet_object
+from tests.utils import make_2d_object
 
 
 def _halfspace_obstacles(point, normal, dim=2):
@@ -159,27 +159,23 @@ def test_body_rests_on_tilted_plane(method):
     assert float(sd.min()) < 0.05
 
 
-def test_fused_frame_gates_off_with_extensions():
-    from tests.utils import default_sim_config_3d
+def test_frictionless_spheres_fold_into_circles():
+    """A frictionless sphere obstacle joins the reference circle arrays;
+    half-spaces stay on the SDF extension path."""
+    from fem_tpu.obstacles import has_extensions
 
-    cfg = default_sim_config_3d(
-        obstacles=(
-            ObstacleConfig(
-                type="halfspace", point=(0, 0.1, 0), normal=(0, 1, 0)
-            ),
-        )
+    obs = Obstacles.from_configs(
+        (), 3,
+        (ObstacleConfig(type="sphere", center=(0.5, 0.1, 0.5), radius=0.2),),
     )
-    _, obj, _ = two_tet_object()
-    assert not supports_blocked_frame(obj, cfg)
-    cfg_sphere = default_sim_config_3d(
-        obstacles=(
-            ObstacleConfig(type="sphere", center=(0.5, 0.1, 0.5), radius=0.2),
-        )
+    assert not has_extensions(obs)
+    np.testing.assert_allclose(np.asarray(obs.radii), [0.2])
+    obs = Obstacles.from_configs(
+        (), 3,
+        (ObstacleConfig(type="halfspace", point=(0, 0.1, 0),
+                        normal=(0, 1, 0)),),
     )
-    # Spheres fold into circles — fused stays eligible modulo other gates.
-    from fem_tpu.sim import _circles_only
-
-    assert _circles_only(cfg_sphere)
+    assert has_extensions(obs)
 
 
 def _write_cube_obj(path, lo=-0.5, hi=0.5):
@@ -281,13 +277,21 @@ def test_mesh_obstacle_in_sim(tmp_path):
     assert float(p[:, 2].min()) < 0.56  # actually descended onto it
 
 
-def test_pallas_advect_rejects_extensions():
+def test_kinematic_step_applies_extensions():
+    """The explicit advection applies SDF extensions after the reference
+    circles: a particle inside the half-space moving into it loses its
+    normal velocity and keeps its tangential one."""
+    from fem_tpu.models.state import SimState
     from fem_tpu.solvers.advect import kinematic_step
 
-    _, obj, state = make_2d_object()
+    pos = jnp.asarray([[0.3, 0.45]])
+    zeros = jnp.zeros_like(pos)
+    state = SimState(pos=pos, vel=jnp.asarray([[0.2, -1.0]]), vel_g=zeros,
+                     force=zeros, jacobi_past_x=zeros)
     obs = _halfspace_obstacles((0.0, 0.5), (0.0, 1.0))
-    with pytest.raises(ValueError, match="SDF obstacle"):
-        kinematic_step(
-            state, jnp.zeros_like(state.pos), obj.mass, obs, 1e-4, 0.0,
-            (0.0, -1.0), backend="pallas",
-        )
+    out = kinematic_step(
+        state, zeros, jnp.ones((1,)), obs, 1e-4, 0.0, (0.0, 0.0),
+    )
+    v = np.asarray(out.vel)
+    assert abs(v[0, 1]) < 1e-6
+    np.testing.assert_allclose(v[0, 0], 0.2, rtol=1e-6)

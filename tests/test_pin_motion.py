@@ -158,7 +158,7 @@ def test_diff_substep_forward_parity_moving_pins():
     obj, state, *_ = _bar()
     obs = Obstacles.from_configs((), 2)
     cfg = _cfg(
-        sim_count=1, element_backend="xla", operator_mode="graph",
+        sim_count=1, operator_mode="graph",
         cg_precond="none",
     )
     sub = make_diff_substep_fn(obj, cfg, n_cg_iters=120)

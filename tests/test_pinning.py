@@ -17,7 +17,7 @@ from fem_tpu.models.state import Obstacles, build_object, dense_system_matrix
 from fem_tpu.sim import make_substep_fn, substep
 from fem_tpu.solvers.implicit import implicit_rhs
 from fem_tpu.utils.config import ObjectConfig, SimConfig, parse_config
-from tests.utils import make_2d_object, make_3d_object
+from tests.utils import attach_edge_matrix, make_2d_object, make_3d_object
 
 G_DIR = (0.0, -1.0)
 
@@ -103,18 +103,20 @@ def test_pinned_vertices_hold(cfg_kwargs):
     assert pos[~pinned, 1].mean() < pos0[~pinned, 1].mean() - 1e-5
 
 
-def test_pinned_implicit_3d_blocked_operator():
+def test_pinned_implicit_3d_mxu_operator():
+    """Dirichlet projection around the dense edge-matrix operator (3D)."""
     _, obj, state = make_3d_object(
         subdivisions=3, center=(0.4, 0.6, 0.4),
         pin_boxes=(((0.3, 0.795, 0.3), (0.7, 0.805, 0.7)),),
     )
     assert obj.free_mask is not None
+    obj = attach_edge_matrix(obj)
     pinned = np.asarray(obj.free_mask)[:, 0] == 0.0
     assert pinned.sum() > 0
     pos0 = np.asarray(state.pos).copy()
     cfg = SimConfig(
         dim=3, g_dir=(0.0, -1.0, 0.0), use_explicit_method=False,
-        implicit_method=1, operator_mode="blocked",
+        implicit_method=1, operator_mode="mxu",
     )
     step = make_substep_fn(obj, cfg)
     obs = no_obstacles(3)

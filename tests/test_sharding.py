@@ -127,8 +127,8 @@ def test_2d_mesh_batch_by_elements():
 def test_sharded_3d_tet_substep_matches_single_device(overrides):
     """3D tet mesh under shard_map (SURVEY §5 'meshes that exceed one chip'
     are exactly the 3D ones): every method variant must match the
-    single-device path.  The CG variants run the block-sharded MXU operator
-    (locality blocks partitioned whole across devices, ops/blocking.py)."""
+    single-device path.  Element arrays shard across devices; every
+    assembly and operator apply ends in one psum."""
     cfg_all = default_sim_config_3d(sim_count=2, **overrides)
     _, obj, state = make_3d_object(subdivisions=3)
     obstacles = Obstacles.from_configs((), 3)
@@ -155,24 +155,25 @@ def test_sharded_3d_tet_substep_matches_single_device(overrides):
     )
 
 
-def test_sharded_3d_blocked_operator_is_used():
-    """The sharded implicit-CG path must keep the blocked tables (VERDICT r2:
-    parallel/sharding previously dropped them, falling back to the measured-
-    8.6x-slower graph operator)."""
-    from fem_tpu.parallel.sharding import _sharded_blocking
+def test_sharded_body_pads_and_shards_elements():
+    """The sharded copy pads elements to a multiple of the device count with
+    zero-volume copies of element 0, shards element arrays over the mesh
+    axis and replicates particle arrays."""
+    from jax.sharding import PartitionSpec as P
+
+    from fem_tpu.parallel.sharding import AXIS, _prep_body
 
     cfg_all = default_sim_config_3d(implicit_method=1, preconditioned=1)
-    _, obj, state = make_3d_object(subdivisions=4)
-    blk, spec, local_blocks = _sharded_blocking(obj, cfg_all, 8)
-    assert blk is not None
-    assert blk.num_blocks % 8 == 0
-    assert local_blocks == blk.num_blocks // 8
-    # Fused single-chip VMEM tables must be dropped from the sharded copy.
-    assert blk.s_dense is None and blk.g_dense is None
-    # Explicit configs do not carry blocked tables.
-    cfg_exp = default_sim_config_3d(use_explicit_method=True)
-    blk2, _, _ = _sharded_blocking(obj, cfg_exp, 8)
-    assert blk2 is None
+    _, obj, state = make_3d_object(subdivisions=3)
+    padded, spec, local_cnt = _prep_body(obj, cfg_all, 8)
+    assert padded.element_cnt % 8 == 0 and padded.element_cnt >= obj.element_cnt
+    assert local_cnt == padded.element_cnt // 8
+    extra = padded.element_cnt - obj.element_cnt
+    if extra:
+        assert float(jnp.abs(padded.volume[obj.element_cnt:]).max()) == 0.0
+    assert spec.element_indices == P(AXIS) and spec.ref_inv == P(AXIS)
+    assert spec.mass == P() and spec.rest_pos == P()
+    assert padded.edge_matrix is None
 
 
 def test_sharded_3d_tet_frame_matches_single_device_cg():
@@ -213,34 +214,37 @@ def test_sharded_frame_matches_single_device_explicit():
     )
 
 
-def test_sharded_3d_pallas_prep_matches_single_device():
-    """element_backend='pallas' under shard_map: the in-VMEM blocked prep
-    (ops/blocking.blocked_prep, interpret mode on CPU) runs per-shard on
-    this shard's locality blocks and psums — must match the single-device
-    XLA-prep path."""
-    common = dict(sim_count=2, implicit_method=1, preconditioned=1)
-    cfg_all = default_sim_config_3d(element_backend="pallas", **common)
-    cfg_xla = default_sim_config_3d(element_backend="xla", **common)
-    _, obj, state = make_3d_object(subdivisions=3)
+def test_sharded_3d_matches_oracle():
+    """Sharded implicit CG (parity default) on a 3D tet mesh against the
+    float64 oracle (tests/oracle.py) from the same state."""
+    from tests.oracle import Oracle
+
+    cfg_all = default_sim_config_3d(
+        sim_count=1, implicit_method=1, preconditioned=1
+    )
+    ocfg, obj, state = make_3d_object(subdivisions=3)
     obstacles = Obstacles.from_configs((), 3)
     mesh = make_element_mesh(8)
-
     rng = np.random.default_rng(5)
     state = state.replace(
         vel=jnp.asarray(
             rng.normal(scale=0.2, size=state.pos.shape).astype(np.float32)
         )
     )
-    single = make_substep_fn(obj, cfg_xla)
+    oracle = Oracle(
+        np.asarray(state.pos, np.float64), np.asarray(obj.element_indices),
+        ocfg.rho, ocfg.mu, ocfg.s_lambda, ocfg.damping,
+    )
+    oracle.vel = np.asarray(state.vel, np.float64)
     sharded = make_sharded_substep_fn(obj, cfg_all, mesh)
-    s1, _ = single(state, obstacles)
-    s2, _ = sharded(state, obstacles)
-    np.testing.assert_allclose(
-        np.asarray(s1.pos), np.asarray(s2.pos), rtol=1e-5, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(s1.vel), np.asarray(s2.vel), rtol=1e-4, atol=1e-5
-    )
+    s = state
+    for _ in range(5):
+        s, _ = sharded(s, obstacles)
+        oracle.step_implicit_cg(
+            cfg_all.delta_time, cfg_all.g_dir, [], preconditioned=1
+        )
+    np.testing.assert_allclose(np.asarray(s.pos), oracle.pos, atol=5e-4)
+    np.testing.assert_allclose(np.asarray(s.vel), oracle.vel, atol=5e-3)
 
 
 @pytest.mark.parametrize(
@@ -279,7 +283,7 @@ def test_sharded_cg_precond_matches_single_device(overrides):
 
 def test_sharded_material_matches_single_device():
     """Round-4 material-generic decoupled Hessian under shard_map
-    (corotated: planar polar inside the per-shard blocked prep)."""
+    (corotated: polar decomposition inside the per-shard element chain)."""
     cfg_all = default_sim_config_3d(
         sim_count=2, implicit_method=1, preconditioned=0,
     )
@@ -332,7 +336,7 @@ def test_sharded_newton_matches_single_device():
 
 def test_sharded_newton_decoupled_matches_single_device():
     """newton_hessian="decoupled" under shard_map: each Newton step's prep
-    and blocked operator run per-shard (one psum per assembly/apply)."""
+    and operator run per-shard (one psum per assembly/apply)."""
     cfg_all = default_sim_config_3d(
         sim_count=2, implicit_method=1, preconditioned=0,
         integrator="newton", newton_hessian="decoupled",

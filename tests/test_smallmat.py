@@ -50,8 +50,7 @@ def test_trace_transpose_matmul():
 
 def test_sym_eigh_reconstruction_and_orthogonality():
     """Jacobi sym_eigh (the SVD-free route for the inelastic return map —
-    batched jnp.linalg.svd lowers to a QR custom call that exceeds the
-    16 MB scoped-VMEM stack past ~50k elements on this backend)."""
+    elementwise, fused with its neighbours)."""
     for d in (2, 3):
         a = _rand((400, d, d), 7)
         c = a @ np.swapaxes(a, -1, -2)  # symmetric PSD

@@ -3,7 +3,7 @@
 
 The reference's Neo-Hookean (solver/explicit.py:23-28) NaNs the moment an
 element inverts (unclamped log), and StVK has no volume barrier at all (the
-documented 68k drop-test collapse, BASELINE.md).  The stable Neo-Hookean
+documented 68k drop-test collapse).  The stable Neo-Hookean
 extension is the polynomial core of Smith, de Goes & Kim, "Stable
 Neo-Hookean Flesh Simulation" (TOG 2018): finite and smooth for ALL F
 including inversion, rest-stable, consistent with linear elasticity at

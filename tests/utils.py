@@ -106,7 +106,7 @@ def default_sim_config_3d(**overrides):
 
 
 def attach_edge_matrix(obj):
-    """Attach the dense MXU edge matrix (built on demand since build_object
+    """Attach the dense edge matrix (built on demand since build_object
     only constructs it when operator_mode="mxu" is forced)."""
     import jax.numpy as jnp
 
@@ -118,3 +118,71 @@ def attach_edge_matrix(obj):
                               obj.particle_cnt)
         )
     )
+
+
+def cube_tet_mesh(spacing=0.4):
+    """Unit-cube surface tetrahedralized by the native Delaunay mesher:
+    (nodes, surface faces, tets)."""
+    from fem_tpu.models.mesh import delaunay_tetrahedralize
+
+    v = np.array(
+        [
+            [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+            [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1],
+        ],
+        np.float64,
+    )
+    f = np.array(
+        [
+            [0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7],
+            [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],
+            [0, 4, 7], [0, 7, 3], [1, 2, 6], [1, 6, 5],
+        ],
+        np.int64,
+    )
+    nodes, tets = delaunay_tetrahedralize(v, f, spacing)
+    return nodes, f, tets
+
+
+def dense_system_from_blocks(obj, K, dt, beta=0.0):
+    """Dense (N·d, N·d) implicit matrix A = I − dt·(dt+β)·M⁻¹·G(K) assembled
+    from per-element blocks K by the reference's scatter loop
+    (solver/implicit.py:151-194) in float64 numpy — independent of the
+    matrix-free operator it checks."""
+    K = np.asarray(K, np.float64)
+    idx = np.asarray(obj.element_indices)
+    d, n = obj.dim, obj.particle_cnt
+    a = np.zeros((n, n, d, d))
+    for e in range(idx.shape[0]):
+        v0 = idx[e, 0]
+        for i in range(1, d + 1):
+            vi = idx[e, i]
+            a[vi, vi] += K[e]
+            a[vi, v0] -= K[e]
+            a[v0, vi] -= K[e]
+            a[v0, v0] += K[e]
+    mass = np.asarray(obj.mass, np.float64)
+    a = -dt * (dt + beta) * a / mass[:, None, None, None]
+    a[np.arange(n), np.arange(n)] += np.eye(d)
+    return a.transpose(0, 2, 1, 3).reshape(n * d, n * d)
+
+
+def energy_gradient_f64(obj, pos, material=None):
+    """∂U/∂x of the total elastic energy by reverse-mode AD in float64 —
+    an independent check of the analytic force columns."""
+    import jax
+
+    from fem_tpu.ops.element import total_energy
+
+    material = obj.material if material is None else material
+    with jax.enable_x64(True):
+        import jax.numpy as jnp
+
+        g = jax.grad(total_energy)(
+            jnp.asarray(np.asarray(pos), jnp.float64),
+            jnp.asarray(np.asarray(obj.element_indices)),
+            jnp.asarray(np.asarray(obj.ref_inv), jnp.float64),
+            jnp.asarray(np.asarray(obj.volume), jnp.float64),
+            obj.mu, obj.s_lambda, material,
+        )
+        return np.asarray(g)

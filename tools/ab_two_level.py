@@ -66,7 +66,7 @@ def main():
             np.asarray(res.pos)
             t0 = time.perf_counter()
             res = solve(state0.pos)
-            sag = float(np.asarray(res.pos)[:, 1].min())  # barrier
+            sag = float(np.asarray(res.pos)[:, 1].min())
             wall = time.perf_counter() - t0
             print(
                 f"static precond={precond}: newton {int(res.iterations)}, "
@@ -92,14 +92,14 @@ def main():
             state = state0
             # Warm up + compile.
             state, aux = frame(state, obstacles)
-            np.asarray(state.pos)  # completion barrier (relay!)
+            np.asarray(state.pos)
             n_frames = max(2, int(round(args.seconds / (dt * 10))))
             t0 = time.perf_counter()
             iters = 0
             for _ in range(n_frames):
                 state, aux = frame(state, obstacles)
                 iters += int(np.asarray(aux.solver_iterations).sum())
-            pos = np.asarray(state.pos)  # barrier
+            pos = np.asarray(state.pos)
             wall = time.perf_counter() - t0
             substeps = n_frames * 10
             ok = bool(np.isfinite(pos).all())

@@ -3,7 +3,7 @@
 
 Builds a 3D tet column (Kuhn grid stretched 3:1), solves the unit-load
 static equilibrium (host-chunked, two-level-Chebyshev preconditioned —
-the measured 3D statics winner, BASELINE.md), then runs the linearized
+the measured 3D statics winner), then runs the linearized
 buckling pencil solve and reports the critical factor, mode character,
 residuals, and wall times.  Euler reference for the continuum column
 P_cr = pi^2 E I / (4 L^2) printed alongside (CST tets are stiff in
@@ -79,7 +79,7 @@ def main():
         obj, state.pos, f_ext=jnp.asarray(fext), chunk_newton=2,
         max_newton=30, cg_iters=1200, cg_precond="two_level_cheb3",
     )
-    g = float(base.grad_norm)  # completion barrier (relay!)
+    g = float(base.grad_norm)
     t_static = time.time() - t0
     print(
         f"static: {int(base.iterations)} newton / {int(base.cg_iterations)} "

@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # Everything the driver exercises, in one script (CLAUDE.md roadmap).
 # Usage: bash tools/run_all_checks.sh [--fast]
-#   --fast skips the TPU-side bench (CPU-only checks, ~6 min).
+#   --fast skips the accelerator steps (entry compile check and bench,
+#   which needs a GPU).
 set -uo pipefail
 cd "$(dirname "$0")/.."
 
@@ -31,12 +32,12 @@ step "multichip dry run (8 virtual CPU devices)"
 python -c "import __graft_entry__ as g; g.dryrun_multichip(8)" || fail=1
 
 if [ "$FAST" -eq 0 ]; then
-  step "flagship entry compile check (TPU if available)"
+  step "flagship entry compile check"
   python - <<'EOF' || fail=1
 import jax, numpy as np, __graft_entry__ as g
 fn, args = g.entry()
 out = jax.jit(fn)(*args)
-pos = np.asarray(out[0].pos)  # value fetch = the only reliable barrier here
+pos = np.asarray(out[0].pos)
 assert np.isfinite(pos).all()
 print("entry OK:", int(np.asarray(out[1].solver_iterations)), "CG iters")
 EOF
